@@ -11,6 +11,7 @@ setup(
     package_data={
         "deep_cartograph_tpu": ["log_config/*.ini", "native/*.cpp",
                                 "default_config.yml"],
+        "deep_cartograph_torch": ["ops/csrc/*.cu", "ops/csrc/*.cuh"],
     },
     python_requires=">=3.10",
     entry_points={
