@@ -12,25 +12,37 @@ Phases, each failing the run (non-zero exit) if it fails:
 2. Kernels against their plain PyTorch versions at the main path's shapes:
    K1 (pair distances) on one featurize chunk (the 20,000 frames asked for,
    clamped by auto_chunk_size to 13,899) of 48 CA atoms x 1,081 pairs,
-   K2 (KDE logsumexp) on a 150 x 150 grid x 100,000 samples.
-   Each is timed with CUDA events beside its plain version, one PyTorch
-   library call computing the same function, and its bound on this card.
-3. Main path, the serving path at the shape of the repo's headline
-   workload (BASELINE.md config 2): write a 100,000-frame x 48-atom DCD and
-   its CA PDB, featurize it (1,171 features), project every frame through
-   a seeded (1171, 64, 64, 2) tanh deep-TICA net with FramesToCV, and draw
-   the 1-D FES of each CV (dense branch) and the 2-D FES (K2 branch). The
-   kernels' launch counters are zeroed just before and read just after,
-   and the outputs are checked against numpy references on a small input.
+   K2 (KDE logsumexp) on a 150 x 150 grid x 100,000 samples, K3 (all-pairs
+   distance matrix, no caller on the main path) on 256 frames x 1,000
+   atoms. Each is timed with CUDA events beside its plain version, one
+   PyTorch library call computing the same function, and its bound on this
+   card.
+3. Main path at the shape of the repo's headline workload (BASELINE.md
+   config 2, bench.py:47-53 and :342-430): write a 100,000-frame x 48-atom
+   DCD and its CA PDB, featurize it (1,171 features, K1), compute the filter
+   statistics on the card (entropy, std), keep the features whose rounded
+   std is not below its median, train a deep-TICA CV on them (net
+   (d_in, 64, 64, 2), tanh, lag 10, 10 seeded tries as one batched
+   program, batch 4,096, 10 epochs, Adam 1e-3), fit its TICA layer and
+   post-normalization, serve the trained CV over every frame with
+   FramesToCV (K1) and draw the 1-D FES of each CV (dense branch) and the
+   2-D FES (K2 branch). The kernels' launch counters are zeroed just before
+   and read just after, and the outputs are checked against numpy
+   references on a small input.
+4. Training on the card against the same training by the port on the CPU,
+   on a cut-down copy (20,000 frames, 2 tries, 2 epochs); then the main
+   path's training cut to 2 epochs, through the calculator, once under
+   torch's sync debug mode (host syncs by line of code) and once under
+   torch.profiler (per step: host time, card time, sync calls).
 
-Prints the nvidia-smi line, then one JSON line {"kernels": [...]}, then, as
-the last line, {"ok": true, "device": {...}}. Imports nothing of JAX.
+Prints the nvidia-smi line, the [smoke] lines (times beside the card's name
+and power limit), then one JSON line {"kernels": [...]}, then, as the last
+line, {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
-import math
 import os
 import subprocess
 import sys
@@ -45,6 +57,31 @@ CHUNK = 20_000           # featurize frame chunk asked for (bench.py's CHUNK)
 NUM_BINS = 150           # FES grid per axis (the config's default num_bins)
 BANDWIDTH = 0.05
 SEED = 0
+THERMAL_JITTER = 0.2     # Angstrom, per coordinate and frame
+STD_QUANTILE = 0.5       # keep features whose std is not below the median
+K3_FRAMES, K3_ATOMS = 256, 1000   # a dRMSD-sized selection, ragged vs any tile
+
+# The deep-TICA training of bench.py:342-430 through the calculator.
+TRAIN_CONFIG = {
+    "dimension": 2,
+    "lag_time": 10,
+    "features_normalization": "mean_std",
+    "tica_regularization": 1e-6,
+    "architecture": {"encoder": {
+        "layers": [64, 64],
+        "activation": ["tanh", "tanh"],
+        "last_layer_activation": None,
+    }},
+    "training": {
+        "general": {"num_tries": 10, "lengths": [0.8, 0.2], "batch_size": 4096,
+                    "max_epochs": 10, "shuffle": True, "seed": 42,
+                    "check_val_every_n_epoch": 1, "save_check_every_n_epoch": 1},
+        "optimizer": {"name": "Adam", "kwargs": {"lr": 1e-3}},
+        "model_to_save": "best",
+    },
+}
+CUT_FRAMES, CUT_TRIES, CUT_EPOCHS = 20_000, 2, 2
+BREAKDOWN_EPOCHS = 2     # the training run under sync debug mode and the profiler
 
 # Published peaks of one H100 SXM (NVIDIA data sheet; 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -54,6 +91,13 @@ SFU_OPS_PER_CLOCK_PER_SM = 16   # exp2 etc. on the special-function units
 K1_TOL = 1e-5                   # nm, absolute
 K2_ATOL, K2_RTOL = 1e-4, 1e-5   # log density: fp32 rounding of -|d|^2
 FES_TOL = 1e-3                  # kJ/mol against float64 numpy
+K3_TOL = 1e-5                   # Angstrom, absolute (+1e-6 relative)
+PROJECTION_TOL = 1e-4           # the repo's projection contract
+# Card against CPU training: the same batches and initial parameters, float32
+# sums in other orders compounded over the steps (the card test holds a toy
+# run to the same).
+CARD_CPU_LOSS_RTOL = 1e-4
+CARD_CPU_PROJECTION_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -61,10 +105,12 @@ def log(msg: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Workload (bench.py:97-125, copied: bench.py imports JAX)
+# Workload (bench.py:97-125, copied: bench.py imports JAX; plus jitter)
 # ---------------------------------------------------------------------------
 
-def make_trajectory(n_frames: int, n_atoms: int) -> np.ndarray:
+def make_trajectory(n_frames: int, n_atoms: int,
+                    jitter: float = THERMAL_JITTER) -> np.ndarray:
+    """bench.py's helix with 8 slow sine modes, plus thermal jitter."""
     rng = np.random.default_rng(SEED)
     t = np.linspace(0, 4 * np.pi, n_atoms)
     base = np.stack([2.3 * np.cos(t), 2.3 * np.sin(t), 1.5 * t], 1).astype(
@@ -76,9 +122,14 @@ def make_trajectory(n_frames: int, n_atoms: int) -> np.ndarray:
     shapes = (rng.standard_normal((n_modes, n_atoms, 3)) * 0.3).astype(np.float32)
     tt = np.arange(n_frames, dtype=np.float32) / n_frames * 2 * np.pi
     waves = np.sin(freqs[None, :] * tt[:, None] + phases[None, :])
-    return (base[None] + np.einsum("fm,mad->fad", waves, shapes)).astype(
-        np.float32
-    )
+    coords = base[None] + np.einsum("fm,mad->fad", waves, shapes)
+    # Thermal jitter (not in bench.py): without it the lag-10 motion is
+    # deterministic, the batch TICA eigenvalues sit at 1, and the estimator
+    # (C0 from x_t only) lets training push them past 1, which the
+    # calculator's -dimension bound then rejects. The JAX calculator does
+    # the same on that data (tests/test_torch_deep_tica.py).
+    coords += rng.normal(0.0, jitter, coords.shape)
+    return coords.astype(np.float32)
 
 
 def make_labels(n_atoms: int):
@@ -171,6 +222,7 @@ def check_kernels(coords: np.ndarray, pairs_np: np.ndarray, sfu_rate: float):
     from deep_cartograph_torch.geom.engine import auto_chunk_size
     from deep_cartograph_torch.ops import kde as k2
     from deep_cartograph_torch.ops import pair_distances as k1
+    from deep_cartograph_torch.ops import pairwise_distance_matrix as k3
 
     dev = torch.device("cuda")
     records = {}
@@ -255,6 +307,46 @@ def check_kernels(coords: np.ndarray, pairs_np: np.ndarray, sfu_rate: float):
         "library_call": "torch.logsumexp over -torch.cdist(grid, samples)**2, "
                         "2048 grid rows at a time",
     }
+
+    # K3 on a dRMSD-sized selection: 256 frames x 1,000 atoms.
+    coords3 = torch.tensor(make_trajectory(K3_FRAMES, K3_ATOMS), device=dev)
+    got = k3.pairwise_distance_matrix(coords3)
+    torch.cuda.synchronize()
+    want = k3.pairwise_distance_matrix_plain(coords3)
+    diff = (got - want).abs()
+    err = float(diff.max())
+    check(bool((diff <= K3_TOL + 1e-6 * want.abs()).all()),
+          f"K3 agrees with its plain version (max err {err})")
+    del want, diff
+    out = torch.empty_like(got)
+    F3, A3 = coords3.shape[0], coords3.shape[1]
+    k3_bound, k3_by = bound_ms(
+        n_bytes=F3 * A3 * 12 + F3 * A3 * A3 * 4, flops=9.0 * F3 * A3 * A3,
+        sfu_ops=0.0, sfu_rate=sfu_rate,
+    )
+    records["K3"] = {
+        "name": "pairwise_distance_matrix_kernel",
+        "route": "cuda",
+        "source": "deep_cartograph_torch/ops/csrc/pairwise_distance_matrix.cu",
+        "replaces": "deep_cartograph_tpu/ops/pallas_kernels.py:61",
+        "tpu_function": "pairwise_distance_matrix",
+        "main_path": "no main-path caller (none in the JAX package either)",
+        "shape": {"F": F3, "A": A3},
+        "max_abs_err": err,
+        "tolerance": f"abs {K3_TOL} A + 1e-6 x |plain|",
+        "ms": cuda_ms(lambda: k3.launch(coords3, out), 20),
+        "plain_ms": cuda_ms(lambda: k3.pairwise_distance_matrix_plain(coords3), 3),
+        "bound_ms": k3_bound,
+        "bound_by": k3_by,
+        "library_ms": cuda_ms(lambda: torch.cdist(
+            coords3, coords3, compute_mode="donot_use_mm_for_euclid_dist"), 5),
+        "library_call": "torch.cdist(coords, coords, "
+                        "compute_mode='donot_use_mm_for_euclid_dist')",
+        "library_mm_ms": cuda_ms(lambda: torch.cdist(
+            coords3, coords3, compute_mode="use_mm_for_euclid_dist"), 5),
+    }
+    del coords3, got, out
+    torch.cuda.empty_cache()
     return records
 
 
@@ -287,37 +379,57 @@ def numpy_fes_1d(x: np.ndarray, axis: np.ndarray, kt: float) -> np.ndarray:
     return fes - fes.min()
 
 
-def seeded_net(n_features: int, norm_mean, norm_range, gen):
-    """(n_features, 64, 64, 2) tanh deep-TICA net with weights drawn from
-    `gen` (uniform +-1/sqrt(fan_in), torch.nn.Linear's default scale)."""
+def synced(fn):
+    """(fn(), host seconds) with the device drained before and after."""
     import torch
 
-    from deep_cartograph_torch.models.networks import DeepTICANet
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
-    net = DeepTICANet(
-        (n_features, 64, 64, 2),
-        {"activation": ["tanh", "tanh", None]},
-        norm_mean=norm_mean,
-        norm_range=norm_range,
-    )
-    with torch.no_grad():
-        for layer in net.nn.dense:
-            bound = 1.0 / math.sqrt(layer.in_features)
-            for p in (layer.weight, layer.bias):
-                p.copy_(torch.rand(p.shape, generator=gen) * 2 * bound - bound)
-    return net
+
+def check_training(calc, dimension: int, result: dict) -> None:
+    """The training checks: finite losses, the selected try improved,
+    scores above -dimension, TICA eigenvalues in (0, 1]."""
+    for try_num, r in calc.try_results:
+        for key in ("train_loss", "valid_loss"):
+            check(bool(np.isfinite(r.metrics[key]).all()),
+                  f"try {try_num} {key} finite")
+    vl = calc.metrics["valid_loss"]
+    check(vl[-1] < vl[0], f"selected try's validation loss fell ({vl[0]} -> {vl[-1]})")
+    valid = [r.score for _, r in calc.try_results if calc._validate_result(r)]
+    check(len(valid) > 0 and min(valid) >= -dimension,
+          f"selected scores >= -{dimension}: {valid}")
+    ev = np.asarray(calc.eigenvalues_)
+    check(bool(((ev > 0) & (ev <= 1)).all()), f"TICA eigenvalues in (0, 1]: {ev}")
+    result["tries"] = [
+        {"try": n, "score": r.score, "best_epoch": r.best_epoch,
+         "description": r.description} for n, r in calc.try_results
+    ]
+    result["selected_score"] = calc.cv_score
+    result["tica_eigenvalues"] = ev.tolist()
+    result["selected_valid_loss"] = vl
 
 
 def main_path(coords: np.ndarray, tmp: str, stats) -> dict:
-    """Phase 3: the serving path, driven through the port's entry points."""
+    """Phase 3: featurize, filter, train, serve and draw, through the port's
+    entry points."""
     import torch
 
-    from deep_cartograph_torch.deploy import DeepTICAProjection, FramesToCV
+    from deep_cartograph_torch.cv.deep import DeepTICACalculator
+    from deep_cartograph_torch.deploy import FramesToCV
     from deep_cartograph_torch.fes.kde import KB_KJ_MOL, compute_fes
     from deep_cartograph_torch.geom.engine import Featurizer
     from deep_cartograph_torch.io.dcd import read_dcd, write_dcd
     from deep_cartograph_torch.io.topology import Topology
     from deep_cartograph_torch.io.traj import iter_frame_chunks
+    from deep_cartograph_torch.stats.descriptors import (
+        quantile_mask,
+        shannon_entropy,
+        standard_deviation,
+    )
 
     pdb_path = os.path.join(tmp, "ca.pdb")
     dcd_path = os.path.join(tmp, "traj.dcd")
@@ -326,7 +438,6 @@ def main_path(coords: np.ndarray, tmp: str, stats) -> dict:
     labels = make_labels(N_ATOMS)
     top = Topology.from_pdb(pdb_path)
     featurizer = Featurizer(top, labels)
-    gen = torch.Generator().manual_seed(SEED)
     result = {}
 
     # Host decode alone, for the breakdown of the featurize time.
@@ -337,32 +448,37 @@ def main_path(coords: np.ndarray, tmp: str, stats) -> dict:
 
     for s in stats:
         s.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    features = featurizer.featurize_trajectory(dcd_path, frame_chunk=CHUNK)
-    result["featurize_s"] = time.perf_counter() - t0
+    features, result["featurize_s"] = synced(
+        lambda: featurizer.featurize_trajectory(dcd_path, frame_chunk=CHUNK))
 
-    feats_d = torch.tensor(features, device="cuda")
-    net = seeded_net(
-        features.shape[1], feats_d.mean(0), feats_d.std(0).clamp_min(1e-6), gen
-    )
-    theta = float(torch.rand((), generator=gen)) * math.pi
-    evecs = torch.tensor([[math.cos(theta), -math.sin(theta)],
-                          [math.sin(theta), math.cos(theta)]])
-    with torch.no_grad():
-        latent = net.to("cuda")(feats_d) @ evecs.to("cuda")
-    lmin, lmax = latent.amin(0), latent.amax(0)
-    projection = DeepTICAProjection(
-        net, evecs, ((lmax + lmin) / 2).cpu(), ((lmax - lmin) / 2).cpu()
-    )
-    pipeline = FramesToCV(projection, top, labels)
+    # The feature matrix goes up once; statistics, filter and training read
+    # it on the card.
+    feats_d, result["upload_s"] = synced(lambda: torch.as_tensor(features).cuda())
+    (entropy, std), result["stats_s"] = synced(
+        lambda: (shannon_entropy(feats_d), standard_deviation(feats_d)))
+
+    def screen():
+        keep = quantile_mask(std, STD_QUANTILE)
+        cols = torch.as_tensor(np.nonzero(keep)[0], device="cuda")
+        return keep, feats_d.index_select(1, cols)
+
+    (keep, kept_features), result["filter_s"] = synced(screen)
+    _, result["filter_again_s"] = synced(screen)  # kernels loaded: the warm cost
+    kept = [lab for lab, k in zip(labels, keep) if k]
+    result["n_kept"] = len(kept)
+
+    calc = DeepTICACalculator(TRAIN_CONFIG)
+    _, result["set_data_s"] = synced(lambda: calc._set_training_data(
+        kept_features, np.zeros(N_FRAMES, np.int64), kept))
+    trained, result["train_s"] = synced(calc.train)
+    check(trained, "training produced a valid model")
+    result["epoch_s"] = calc.epoch_seconds
+    _, result["normalize_cv_s"] = synced(calc.normalize_cv)
+
+    pipeline = FramesToCV(calc.projection(), top, kept)
     frames = read_dcd(dcd_path)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cv = pipeline(frames)
-    result["project_s"] = time.perf_counter() - t0
-    with torch.no_grad():
-        cv_from_features = projection(feats_d).cpu().numpy()
+    cv, result["project_s"] = synced(lambda: pipeline(frames))
+    cv_from_features = calc.project_data(kept_features)
 
     kt = KB_KJ_MOL * 300.0
     fes_1d = []
@@ -371,11 +487,8 @@ def main_path(coords: np.ndarray, tmp: str, stats) -> dict:
         fes_1d.append(compute_fes(cv[:, k], bandwidth=BANDWIDTH,
                                   num_bins=NUM_BINS, num_blocks=100))
     result["fes_1d_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    axes_2d, fes_2d, err_2d = compute_fes(
-        cv, bandwidth=BANDWIDTH, num_bins=NUM_BINS, num_blocks=1
-    )
-    result["fes_2d_s"] = time.perf_counter() - t0
+    (axes_2d, fes_2d, err_2d), result["fes_2d_s"] = synced(lambda: compute_fes(
+        cv, bandwidth=BANDWIDTH, num_bins=NUM_BINS, num_blocks=1))
     result["launches"] = {s.name: s.launches for s in stats}
 
     # Checks.
@@ -385,11 +498,17 @@ def main_path(coords: np.ndarray, tmp: str, stats) -> dict:
     ref = numpy_features(coords[:256], labels)
     result["features_err_vs_numpy"] = float(np.abs(features[:256] - ref).max())
     check(result["features_err_vs_numpy"] <= 1e-4, "features match numpy")
+    check(entropy.shape == std.shape == (1171,) and bool(np.isfinite(entropy).all()),
+          "filter statistics finite")
+    ref_std = np.round(features.astype(np.float64).std(0), 3)
+    result["std_err_vs_numpy"] = float(np.abs(std - ref_std).max())
+    check(result["std_err_vs_numpy"] <= 1.0001e-3, "rounded std matches numpy")
+    check_training(calc, TRAIN_CONFIG["dimension"], result)
     check(cv.shape == (N_FRAMES, 2) and bool(np.isfinite(cv).all()),
           f"CV values finite, shape {cv.shape}")
-    result["cv_err_vs_features_path"] = float(np.abs(cv - cv_from_features).max())
-    check(result["cv_err_vs_features_path"] <= 1e-4,
-          "FramesToCV matches the projection of featurize_trajectory's output")
+    result["cv_err_vs_project_data"] = float(np.abs(cv - cv_from_features).max())
+    check(result["cv_err_vs_project_data"] <= PROJECTION_TOL,
+          "FramesToCV matches the calculator's project_data on the kept features")
     for k, (axes, fes, err) in enumerate(fes_1d):
         check(fes.shape == err.shape == (NUM_BINS,), f"1-D FES {k} shape")
         check(bool(np.isfinite(fes).all()) and fes.min() == 0.0,
@@ -402,7 +521,134 @@ def main_path(coords: np.ndarray, tmp: str, stats) -> dict:
     check(bool(np.isfinite(fes_2d).all()) and fes_2d.min() == 0.0,
           "2-D FES finite with min 0")
     for s in stats:
-        check(s.launches > 0, f"{s.name} was launched on the main path")
+        if s.name == "pairwise_distance_matrix_kernel":
+            check(s.launches == 0, "K3 has no caller on the main path")
+        else:
+            check(s.launches > 0, f"{s.name} was launched on the main path")
+    return result, calc
+
+
+def count_syncs(fn):
+    """Host syncs that `fn` makes with the card (torch's sync debug mode),
+    counted by the line of code that makes them."""
+    import collections
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message)
+    )
+
+
+# Runtime calls in which the host waits for the card.
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+
+
+def training_breakdown(calc_main) -> dict:
+    """The main path's training (same data, config and seeds) cut to
+    BREAKDOWN_EPOCHS epochs, run twice through `DeepTICACalculator.train`:
+    once under torch's sync debug mode (host syncs by line of code), once
+    under torch.profiler (the trainer's step spans: their host time, the
+    card time of the kernels they launch, and the sync calls inside them)."""
+    import copy
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deep_cartograph_torch.cv.deep import DeepTICACalculator
+    from deep_cartograph_torch.models.training import STEP_SPAN
+
+    config = copy.deepcopy(TRAIN_CONFIG)
+    config["training"]["general"]["max_epochs"] = BREAKDOWN_EPOCHS
+
+    def calculator():
+        calc = DeepTICACalculator(config)
+        calc._set_training_data(calc_main.training_data, np.zeros(N_FRAMES, np.int64),
+                                calc_main.features_ref_labels)
+        return calc
+
+    calc = calculator()
+    sites = count_syncs(calc.train)
+    steps = int(np.ceil(calc.x_t.shape[0] * config["training"]["general"]["lengths"][0]
+                        / calc.batch_size))
+    out = {"epochs": BREAKDOWN_EPOCHS, "steps_per_epoch": steps,
+           "host_syncs_train": sum(sites.values()), "host_sync_sites": dict(sites)}
+
+    calc = calculator()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = synced(calc.train)
+    events = prof.events()
+    host, card = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    # A step span lies on the host's timeline and, mirrored, on the card's,
+    # from the step's first kernel to its last. The backward's kernels are
+    # launched from autograd's own thread, so they are counted by where
+    # they run on the card, not by the host span they were launched in.
+    spans = [e.time_range for e in events if e.name == STEP_SPAN and e.device_type == host]
+    windows = [e.time_range for e in events if e.name == STEP_SPAN and e.device_type == card]
+    work = [e.time_range for e in events if e.device_type == card and e.name != STEP_SPAN]
+    syncs = [e.time_range for e in events if e.name in SYNC_CALLS]
+    in_steps = sum(any(s.start <= e.start <= s.end for s in spans) for e in syncs)
+    device_us = sum(w.elapsed_us() for w in work)
+    step_host_us = sum(s.elapsed_us() for s in spans)
+    step_device_us = sum(w.elapsed_us() for w in work
+                         if any(s.start <= w.start < s.end for s in windows))
+    check(len(windows) == len(spans), "the profile mirrors every step on the card")
+    out.update({
+        "profiled_steps": len(spans),
+        "profiled_sync_calls_train": len(syncs),
+        "profiled_sync_calls_per_step": in_steps / max(len(spans), 1),
+        "profiled_step_ms": step_host_us / max(len(spans), 1) / 1e3,
+        "profiled_step_device_ms": step_device_us / max(len(spans), 1) / 1e3,
+        "profiled_step_busy_share": step_device_us / max(step_host_us, 1e-9),
+        "profiled_train_s": wall,
+        "profiled_train_busy_share": device_us / 1e6 / wall,
+    })
+    check(len(spans) == BREAKDOWN_EPOCHS * steps,
+          f"the profile shows every training step ({len(spans)})")
+    return out
+
+
+def card_against_cpu(calc_main) -> dict:
+    """Phase 4: the same cut-down training on the card and on the CPU."""
+    import copy
+
+    from deep_cartograph_torch.cv.deep import DeepTICACalculator
+
+    config = copy.deepcopy(TRAIN_CONFIG)
+    config["training"]["general"].update(
+        {"num_tries": CUT_TRIES, "max_epochs": CUT_EPOCHS})
+    x = calc_main.training_data[:CUT_FRAMES]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        calc = DeepTICACalculator(config, device=device)
+        calc._set_training_data(x, None, calc_main.features_ref_labels)
+        (trained, _), seconds = synced(lambda: (calc.train(), calc.normalize_cv()))
+        check(trained, f"cut-down training on {device}")
+        runs[device] = (calc, seconds)
+    card, host = runs["cuda"][0], runs["cpu"][0]
+    result = {"card_s": runs["cuda"][1], "cpu_s": runs["cpu"][1]}
+    rel = 0.0
+    for (_, a), (_, b) in zip(card.try_results, host.try_results):
+        for key in ("train_loss", "valid_loss"):
+            ga, gb = np.asarray(a.metrics[key]), np.asarray(b.metrics[key])
+            rel = max(rel, float(np.max(np.abs(ga - gb) / np.abs(gb))))
+    result["loss_max_rel_diff"] = rel
+    check(rel <= CARD_CPU_LOSS_RTOL,
+          f"per-epoch losses on the card match the CPU (max rel diff {rel})")
+    proj = np.abs(card.project_data(x) - host.project_data(x)).max()
+    result["projection_max_abs_diff"] = float(proj)
+    check(proj <= CARD_CPU_PROJECTION_TOL,
+          f"projection on the card matches the CPU (max diff {proj})")
     return result
 
 
@@ -415,11 +661,13 @@ def main() -> int:
     from deep_cartograph_torch.ops import build
     from deep_cartograph_torch.ops import kde as k2
     from deep_cartograph_torch.ops import pair_distances as k1
+    from deep_cartograph_torch.ops import pairwise_distance_matrix as k3
     from deep_cartograph_torch.features.grammar import compile_plan
     from deep_cartograph_torch.io.topology import Topology
 
     # Phase 1: device and build.
-    print(nvidia_smi("name,power.limit"), flush=True)
+    card = nvidia_smi("name,power.limit")
+    print(card, flush=True)
     sm_clock_hz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits")) * 1e6
     num_sms = torch.cuda.get_device_properties(0).multi_processor_count
     sfu_rate = SFU_OPS_PER_CLOCK_PER_SM * num_sms * sm_clock_hz
@@ -439,23 +687,53 @@ def main() -> int:
     # Phase 2: kernels against their plain versions.
     records = check_kernels(coords, pairs, sfu_rate)
     for name, rec in records.items():
-        log(f"{name} {rec['name']}: err {rec['max_abs_err']:.3g}, "
+        log(f"[{card}] {name} {rec['name']}: err {rec['max_abs_err']:.3g}, "
             f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
             f"library {rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} "
             f"by {rec['bound_by']})")
 
     # Phase 3: the main path.
     with tempfile.TemporaryDirectory() as tmp:
-        result = main_path(coords, tmp, [k1.STATS, k2.STATS])
-    log(f"featurize {N_FRAMES / result['featurize_s']:.0f} frames/s "
+        result, calc = main_path(coords, tmp, [k1.STATS, k2.STATS, k3.STATS])
+    epochs = result["epoch_s"]
+    log(f"[{card}] featurize {N_FRAMES / result['featurize_s']:.0f} frames/s "
         f"({result['featurize_s']:.3f} s, host decode alone "
-        f"{result['decode_s']:.3f} s), projection "
-        f"{result['project_s'] * 1e3:.1f} ms, FES 1-D x2 "
+        f"{result['decode_s']:.3f} s), upload {result['upload_s']:.3f} s, "
+        f"stats (entropy + std) {result['stats_s']:.3f} s, filter "
+        f"{result['filter_s'] * 1e3:.1f} ms (again {result['filter_again_s'] * 1e3:.1f} ms) "
+        f"({result['n_kept']} of 1171 kept), data to the calculator "
+        f"{result['set_data_s']:.3f} s")
+    per_epoch = ", ".join(f"{e:.3f}" for e in epochs)
+    scores = ", ".join(f"{t['score']:.5f}" for t in result["tries"])
+    log(f"[{card}] train {result['train_s']:.3f} s for "
+        f"{len(result['tries'])} tries x {len(epochs)} epochs (per epoch "
+        f"{per_epoch} s), post-normalization {result['normalize_cv_s']:.3f} s; "
+        f"scores {scores}; selected {result['selected_score']:.5f}")
+    log(f"[{card}] projection {result['project_s'] * 1e3:.1f} ms, FES 1-D x2 "
         f"{result['fes_1d_s'] * 1e3:.1f} ms, FES 2-D {result['fes_2d_s'] * 1e3:.1f} ms")
     log(json.dumps(result))
 
+    # Phase 4: the card against the CPU; one training step in detail.
+    compare = card_against_cpu(calc)
+    compare.update(training_breakdown(calc))
+    log(f"[{card}] cut-down training ({CUT_FRAMES} frames, {CUT_TRIES} tries, "
+        f"{CUT_EPOCHS} epochs): card {compare['card_s']:.3f} s, CPU "
+        f"{compare['cpu_s']:.3f} s, losses within rel "
+        f"{compare['loss_max_rel_diff']:.3g}, projection within "
+        f"{compare['projection_max_abs_diff']:.3g}")
+    log(f"[{card}] training, {compare['epochs']} epochs of {compare['steps_per_epoch']} "
+        f"steps ({calc.num_tries} tries x {calc.batch_size} pairs): host syncs "
+        f"{compare['host_syncs_train']} in all; under torch.profiler "
+        f"{compare['profiled_sync_calls_per_step']:.2f} sync calls per step, a "
+        f"step {compare['profiled_step_ms']:.3f} ms of host time launching "
+        f"{compare['profiled_step_device_ms']:.3f} ms of card work "
+        f"({compare['profiled_step_busy_share']:.1%}), card busy "
+        f"{compare['profiled_train_busy_share']:.1%} of the profiled training "
+        f"({compare['profiled_train_s']:.3f} s)")
+    log(json.dumps(compare))
+
     kernels = []
-    for key in ("K1", "K2"):
+    for key in ("K1", "K2", "K3"):
         rec = dict(records[key])
         rec["launches"] = result["launches"][rec["name"]]
         rec["kernel_ms"] = rec["ms"]

@@ -1,9 +1,10 @@
-"""Carry trained CVs across from the JAX package, as numpy arrays.
+"""Carry network parameters between the JAX package's layout and the port's.
 
-Flax `Dense` stores `kernel` (in, out); `torch.nn.Linear` stores `weight`
-(out, in), so every kernel is transposed. The JAX side's parameter tree of
-a deep-TICA calculator is {"nn": {"dense_<i>": {"kernel", "bias"},
-"bn_scale_<i>", "bn_bias_<i>"}}.
+The JAX side's parameter tree of a deep-TICA calculator is {"nn":
+{"dense_<i>": {"kernel", "bias"}, "bn_scale_<i>", "bn_bias_<i>"}}. The
+port's parameters are the same tree flattened to "nn/dense_<i>/kernel"
+keys, with Flax's (in, out) kernels, so they carry across unchanged, with
+or without a leading tries axis.
 """
 
 from __future__ import annotations
@@ -17,20 +18,45 @@ from deep_cartograph_torch.deploy import DeepTICAProjection, LinearProjection
 from deep_cartograph_torch.models.networks import DeepTICANet
 
 
+def flatten_tree(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{"nn": {"dense_0": {"kernel": a}}} -> {"nn/dense_0/kernel": a}."""
+    flat = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            flat.update(flatten_tree(value, f"{prefix}{key}/"))
+        else:
+            flat[f"{prefix}{key}"] = value
+    return flat
+
+
+def unflatten_tree(flat: Dict) -> Dict:
+    tree: Dict = {}
+    for key, value in flat.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return tree
+
+
+def params_from_flax(tree: Dict) -> Dict[str, torch.Tensor]:
+    """A Flax parameter tree (numpy leaves; e.g. the JAX side's
+    `_init_params_stack` output, leading tries axis kept) -> the port's
+    flat float32 parameters."""
+    return {k: _tensor(v) for k, v in flatten_tree(tree).items()}
+
+
+def params_to_flax(params: Dict[str, torch.Tensor]) -> Dict:
+    """The port's flat parameters -> a Flax parameter tree of numpy arrays,
+    which the JAX package's modules `apply` unchanged."""
+    return unflatten_tree(
+        {k: v.detach().cpu().numpy() for k, v in params.items()}
+    )
+
+
 def _tensor(x) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.float32))
-
-
-def _feedforward_state(tree: Dict, n_transitions: int) -> Dict[str, torch.Tensor]:
-    state = {}
-    for i in range(n_transitions):
-        dense = tree[f"dense_{i}"]
-        state[f"dense.{i}.weight"] = _tensor(dense["kernel"]).T.contiguous()
-        state[f"dense.{i}.bias"] = _tensor(dense["bias"])
-        if f"bn_scale_{i}" in tree:
-            state[f"bn_scale.{i}"] = _tensor(tree[f"bn_scale_{i}"])
-            state[f"bn_bias.{i}"] = _tensor(tree[f"bn_bias_{i}"])
-    return state
 
 
 def deep_tica_from_jax(
@@ -40,18 +66,17 @@ def deep_tica_from_jax(
     post_mean: Optional[np.ndarray],
     post_range: Optional[np.ndarray],
 ) -> DeepTICAProjection:
-    """A `DeepTICAProjection` computing what the JAX deep-TICA calculator
-    projects. `params` is the calculator's parameter tree as numpy arrays;
+    """A `DeepTICAProjection` computing what a JAX deep-TICA calculator
+    projects. `params` is the calculator's parameter tree, as numpy arrays;
     `architecture` its architecture dict (layers, encoder_options,
     norm_mean, norm_range)."""
-    layers = list(architecture["layers"])
     net = DeepTICANet(
-        layers,
+        architecture["layers"],
         architecture.get("encoder_options") or {},
+        params_from_flax(params),
         norm_mean=architecture.get("norm_mean"),
         norm_range=architecture.get("norm_range"),
     )
-    net.nn.load_state_dict(_feedforward_state(params["nn"], len(layers) - 1))
     return DeepTICAProjection(net, tica_evecs, post_mean, post_range)
 
 

@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("pair_distances", "kde_logsumexp")
+SOURCES = ("pair_distances", "kde_logsumexp", "pairwise_distance_matrix")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -1,4 +1,4 @@
-"""Port kernels K1 and K2 against the JAX package's Pallas kernels (interpret
+"""Port kernels K1, K2 and K3 against the JAX package's Pallas kernels (interpret
 mode on the CPU). On the CPU the port's wrappers run their plain PyTorch
 versions; the CUDA kernels themselves are held to those versions on the
 card (tests/test_torch_cuda.py, chip_smoke.py)."""
@@ -11,6 +11,7 @@ import torch
 from deep_cartograph_tpu.ops import pallas_kernels as jax_ops
 from deep_cartograph_torch.ops import kde as torch_kde
 from deep_cartograph_torch.ops import pair_distances as torch_pd
+from deep_cartograph_torch.ops import pairwise_distance_matrix as torch_pdm
 
 torch.set_num_threads(2)
 
@@ -101,3 +102,40 @@ def test_kde_logsumexp_rejects_bad_inputs():
         torch_kde.kde_logsumexp(torch.zeros((4, 9)), torch.zeros((3, 9)), 1.0)
     with pytest.raises(ValueError):
         torch_kde.kde_logsumexp(grid, torch.zeros((0, 2)), 1.0)
+
+
+@pytest.mark.parametrize("A", [1, 50, 300])
+def test_pairwise_distance_matrix_matches_jax_kernel(A):
+    """K3's plain version against the Pallas kernel in interpret mode, A
+    ragged against the 128-atom tile."""
+    rng = np.random.default_rng(A)
+    coords = (rng.standard_normal((3, A, 3)) * 5).astype(np.float32)
+    want = np.asarray(jax_ops.pairwise_distance_matrix(jnp.asarray(coords), tile=128))
+    before = torch_pdm.STATS.plain_calls
+    got = torch_pdm.pairwise_distance_matrix(torch.from_numpy(coords)).numpy()
+    assert torch_pdm.STATS.plain_calls == before + 1
+    assert got.shape == want.shape == (3, A, A)
+    # both sum exact per-channel differences in float32: 1e-5 Angstrom
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    assert np.all(np.diagonal(got, axis1=1, axis2=2) == 0.0)
+    np.testing.assert_array_equal(got, got.transpose(0, 2, 1))
+
+
+def test_pairwise_distance_matrix_plain_chunks_frames(monkeypatch):
+    rng = np.random.default_rng(1)
+    coords = torch.from_numpy((rng.standard_normal((7, 20, 3)) * 5).astype(np.float32))
+    whole = torch_pdm.pairwise_distance_matrix_plain(coords)
+    # 3 * 20 * 20 * 2 elements: two frames per chunk, a ragged last chunk
+    monkeypatch.setattr(torch_pdm, "PLAIN_ELEMENT_BUDGET", 3 * 20 * 20 * 2)
+    torch.testing.assert_close(torch_pdm.pairwise_distance_matrix_plain(coords),
+                               whole, rtol=0, atol=0)
+    want = torch.cdist(coords.double(), coords.double(),
+                       compute_mode="donot_use_mm_for_euclid_dist").float()
+    torch.testing.assert_close(whole, want, atol=1e-5, rtol=0)
+
+
+def test_pairwise_distance_matrix_rejects_bad_inputs():
+    with pytest.raises(ValueError):
+        torch_pdm.pairwise_distance_matrix(torch.zeros((2, 4, 2)))
+    with pytest.raises(TypeError):
+        torch_pdm.pairwise_distance_matrix(torch.zeros((2, 4, 3), dtype=torch.float64))

@@ -11,11 +11,16 @@ import pytest
 import torch
 
 import deep_cartograph_torch
+from deep_cartograph_torch.cv.deep import DeepTICACalculator
+from deep_cartograph_torch.cv.tica_math import tica
 from deep_cartograph_torch.deploy import FramesToCV, LinearProjection
 from deep_cartograph_torch.fes.kde import compute_fes
 from deep_cartograph_torch.geom.engine import Featurizer
 from deep_cartograph_torch.geom.kernels import PlanEvaluator
 from deep_cartograph_torch.io.topology import Topology
+from deep_cartograph_torch.models.training import Trainer, TrainerConfig
+from deep_cartograph_torch.ops.pairwise_distance_matrix import pairwise_distance_matrix
+from deep_cartograph_torch.stats import descriptors
 from deep_cartograph_torch.utils.device import resolve_device
 
 torch.set_num_threads(2)
@@ -87,3 +92,28 @@ def test_entry_points_raise_without_cuda(no_cuda, ca_system):
     assert Featurizer(top, labels, device="cpu").evaluator.device.type == "cpu"
     plan = Featurizer(top, labels, device="cpu").plan
     assert PlanEvaluator(plan, device="cpu").device == torch.device("cpu")
+
+
+def test_training_slice_entry_points_raise_without_cuda(no_cuda):
+    x = np.random.default_rng(0).normal(size=(20, 3)).astype(np.float32)
+    for call in (
+        lambda: descriptors.shannon_entropy(x),
+        lambda: descriptors.standard_deviation(x),
+        lambda: descriptors.feature_statistics(x),
+        lambda: descriptors.min_value_filter(x, 0.1),
+        lambda: Trainer(lambda *a: None, TrainerConfig()),
+        lambda: DeepTICACalculator({"dimension": 2}),
+        lambda: tica(x[:-1], x[1:], 2),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # asking for the host is the one way to run there
+    assert DeepTICACalculator({"dimension": 2}, device="cpu").device.type == "cpu"
+    assert descriptors.standard_deviation(x, device="cpu").shape == (3,)
+
+
+def test_kernel_wrapper_takes_its_plain_version_only_for_cpu_tensors():
+    """A tensor that is not on the CPU never reaches the plain version: on a
+    CUDA tensor the wrapper launches its kernel, on any other it raises."""
+    with pytest.raises(ValueError, match="Unsupported device"):
+        pairwise_distance_matrix(torch.zeros((2, 4, 3), device="meta"))
