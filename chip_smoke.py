@@ -12,7 +12,9 @@ Phases, each failing the run (non-zero exit) if it fails:
 2. Kernels against their plain PyTorch versions at the main path's shapes:
    K1 (pair distances) on one featurize chunk (the 20,000 frames asked for,
    clamped by auto_chunk_size to 13,899) of 48 CA atoms x 1,081 pairs,
-   K2 (KDE logsumexp) on a 150 x 150 grid x 100,000 samples, K3 (all-pairs
+   K2 (KDE logsumexp) on a 150 x 150 grid x 100,000 samples (and again on
+   that grid stretched 2.5-fold, every corner far from every sample, with
+   the samples sorted by distance from a corner, farthest first), K3 (all-pairs
    distance matrix, no caller on the main path) on 256 frames x 1,000
    atoms. Each is timed with CUDA events beside its plain version, one
    PyTorch library call computing the same function, and its bound on this
@@ -28,7 +30,7 @@ Phases, each failing the run (non-zero exit) if it fails:
    FramesToCV (K1) and draw the 1-D FES of each CV (dense branch) and the
    2-D FES (K2 branch). The kernels' launch counters are zeroed just before
    and read just after, and the outputs are checked against numpy
-   references on a small input.
+   references on a small input. The 2-D FES is then timed 5 times more.
 4. Training on the card against the same training by the port on the CPU,
    on a cut-down copy (20,000 frames, 2 tries, 2 epochs); then the main
    path's training cut to 2 epochs, through the calculator, once under
@@ -82,6 +84,7 @@ TRAIN_CONFIG = {
 }
 CUT_FRAMES, CUT_TRIES, CUT_EPOCHS = 20_000, 2, 2
 BREAKDOWN_EPOCHS = 2     # the training run under sync debug mode and the profiler
+FES_REPEATS = 5          # the 2-D FES timed again after the main path
 
 # Published peaks of one H100 SXM (NVIDIA data sheet; 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -90,6 +93,7 @@ SFU_OPS_PER_CLOCK_PER_SM = 16   # exp2 etc. on the special-function units
 
 K1_TOL = 1e-5                   # nm, absolute
 K2_ATOL, K2_RTOL = 1e-4, 1e-5   # log density: fp32 rounding of -|d|^2
+ADVERSARIAL_GRID_STRETCH = 2.5  # K2's far grid: [-2.5, 2.5]^2 around [-1, 1]^2 data
 FES_TOL = 1e-3                  # kJ/mol against float64 numpy
 K3_TOL = 1e-5                   # Angstrom, absolute (+1e-6 relative)
 PROJECTION_TOL = 1e-4           # the repo's projection contract
@@ -214,6 +218,35 @@ def bound_ms(n_bytes: float, flops: float, sfu_ops: float, sfu_rate: float):
 # Phases
 # ---------------------------------------------------------------------------
 
+def check_k2_adversarial(grid, samples, inv_two_bw2: float) -> dict:
+    """K2 against its plain version at the main path's shape on inputs that
+    need its running max: the grid pushed out so that every corner is
+    farther than sqrt(200) scaled units from every sample (exp underflows in
+    float32 there), and the samples sorted by distance from a corner,
+    farthest first, so that the max rises tile after tile."""
+    import torch
+
+    from deep_cartograph_torch.ops import kde as k2
+
+    far_grid = grid * ADVERSARIAL_GRID_STRETCH
+    corners = far_grid[[0, NUM_BINS - 1, -NUM_BINS, -1]]
+    corner_d2 = float(torch.cdist(corners, samples).min() ** 2 * inv_two_bw2)
+    check(corner_d2 > 200.0, f"every grid corner is far from the samples ({corner_d2})")
+    order = torch.argsort(((samples - far_grid[0]) ** 2).sum(1), descending=True)
+    sorted_samples = samples[order].contiguous()
+    got = k2.kde_logsumexp(far_grid, sorted_samples, inv_two_bw2)
+    torch.cuda.synchronize()
+    scale = torch.sqrt(torch.tensor(inv_two_bw2, dtype=torch.float32)).to(grid.device)
+    want = k2.kde_logsumexp_plain(far_grid * scale, sorted_samples * scale)
+    diff = (got - want).abs()
+    err = float(diff.max())
+    check(bool((diff <= K2_ATOL + K2_RTOL * want.abs()).all()),
+          f"K2 agrees with its plain version on far, sorted inputs (max err {err})")
+    return {"adversarial_max_abs_err": err,
+            "adversarial_min_value": float(want.min()),
+            "adversarial_corner_scaled_d2": corner_d2}
+
+
 def check_kernels(coords: np.ndarray, pairs_np: np.ndarray, sfu_rate: float):
     """Phase 2: each kernel against its plain version at the main path's
     shapes, with timings. Returns the per-kernel records."""
@@ -307,6 +340,7 @@ def check_kernels(coords: np.ndarray, pairs_np: np.ndarray, sfu_rate: float):
         "library_call": "torch.logsumexp over -torch.cdist(grid, samples)**2, "
                         "2048 grid rows at a time",
     }
+    records["K2"].update(check_k2_adversarial(grid, samples, inv_two_bw2))
 
     # K3 on a dRMSD-sized selection: 256 frames x 1,000 atoms.
     coords3 = torch.tensor(make_trajectory(K3_FRAMES, K3_ATOMS), device=dev)
@@ -490,6 +524,12 @@ def main_path(coords: np.ndarray, tmp: str, stats) -> dict:
     (axes_2d, fes_2d, err_2d), result["fes_2d_s"] = synced(lambda: compute_fes(
         cv, bandwidth=BANDWIDTH, num_bins=NUM_BINS, num_blocks=1))
     result["launches"] = {s.name: s.launches for s in stats}
+    # The 2-D FES again (kernels warm), after the launch counts are read.
+    result["fes_2d_again_s"] = [
+        synced(lambda: compute_fes(cv, bandwidth=BANDWIDTH, num_bins=NUM_BINS,
+                                   num_blocks=1))[1]
+        for _ in range(FES_REPEATS)
+    ]
 
     # Checks.
     check(features.shape == (N_FRAMES, len(labels)) == (N_FRAMES, 1171),
@@ -710,7 +750,8 @@ def main() -> int:
         f"{per_epoch} s), post-normalization {result['normalize_cv_s']:.3f} s; "
         f"scores {scores}; selected {result['selected_score']:.5f}")
     log(f"[{card}] projection {result['project_s'] * 1e3:.1f} ms, FES 1-D x2 "
-        f"{result['fes_1d_s'] * 1e3:.1f} ms, FES 2-D {result['fes_2d_s'] * 1e3:.1f} ms")
+        f"{result['fes_1d_s'] * 1e3:.1f} ms, FES 2-D {result['fes_2d_s'] * 1e3:.1f} ms "
+        f"(again: {', '.join(f'{t * 1e3:.2f}' for t in result['fes_2d_again_s'])} ms)")
     log(json.dumps(result))
 
     # Phase 4: the card against the CPU; one training step in detail.

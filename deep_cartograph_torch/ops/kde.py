@@ -92,7 +92,7 @@ def launch(grid_s: torch.Tensor, samples_s: torch.Tensor, out: torch.Tensor) -> 
     device = grid_s.device
     (G, D), N = grid_s.shape, samples_s.shape[0]
     num_sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = lib.kde_logsumexp_splits(G, N, num_sms)
+    splits = lib.kde_logsumexp_splits(G, N, D, num_sms)
     part = torch.empty((2, splits, G), dtype=torch.float32, device=device)
     status = lib.kde_logsumexp(
         grid_s.data_ptr(), samples_s.data_ptr(), part[0].data_ptr(),
@@ -112,6 +112,6 @@ def _library() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_void_p,
         ]
         lib.kde_logsumexp.restype = ctypes.c_int
-        lib.kde_logsumexp_splits.argtypes = [ctypes.c_int] * 3
+        lib.kde_logsumexp_splits.argtypes = [ctypes.c_int] * 4
         lib.kde_logsumexp_splits.restype = ctypes.c_int
     return lib

@@ -61,18 +61,33 @@ def test_pair_distances_kernel_gives_nan_outside_range(cuda):
     assert torch.isfinite(got[:, [1, 3]]).all()
 
 
-@pytest.mark.parametrize("D", range(1, 9))
-@pytest.mark.parametrize("G,N", [(1, 1), (150, 100_000), (22_500, 5_000), (1000, 513)])
-def test_kde_logsumexp_kernel_matches_plain(cuda, D, G, N):
-    rng = np.random.default_rng(D * 7 + G + N)
-    grid = torch.tensor(rng.uniform(-1, 1, (G, D)).astype(np.float32), device=cuda)
-    samples = torch.tensor(rng.normal(0, 0.4, (N, D)).astype(np.float32), device=cuda)
-    inv_two_bw2 = 1.0 / (2 * 0.05**2)
+def _kde_against_plain(cuda, grid, samples, inv_two_bw2):
+    """K2 on the card against its plain version on the wrapper's own scaled
+    inputs; one launch counted."""
+    grid = torch.tensor(np.asarray(grid, np.float32), device=cuda)
+    samples = torch.tensor(np.asarray(samples, np.float32), device=cuda)
+    before = torch_kde.STATS.launches
     got = torch_kde.kde_logsumexp(grid, samples, inv_two_bw2)
     torch.cuda.synchronize()
-    scale = float(np.sqrt(np.float32(inv_two_bw2)))
+    assert torch_kde.STATS.launches == before + 1
+    scale = torch.sqrt(torch.tensor(inv_two_bw2, dtype=torch.float32)).to(cuda)
     want = torch_kde.kde_logsumexp_plain(grid * scale, samples * scale)
+    assert got.shape == want.shape == (grid.shape[0],)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    return want
+
+
+@pytest.mark.parametrize("D", range(1, 9))
+@pytest.mark.parametrize("G,N", [
+    (1, 1), (150, 100_000), (22_500, 5_000), (1000, 513),
+    # G not a multiple of the 512 grid points of a block; N from one sample
+    # to a few 512-sample tiles
+    (511, 1), (513, 37), (1025, 511), (2049, 1537),
+])
+def test_kde_logsumexp_kernel_matches_plain(cuda, D, G, N):
+    rng = np.random.default_rng(D * 7 + G + N)
+    _kde_against_plain(cuda, rng.uniform(-1, 1, (G, D)), rng.normal(0, 0.4, (N, D)),
+                       1.0 / (2 * 0.05**2))
 
 
 def test_kde_ragged_samples_contribute_nothing(cuda):
@@ -85,6 +100,56 @@ def test_kde_ragged_samples_contribute_nothing(cuda):
     got = torch_kde.kde_logsumexp(grid, buf[:n], 200.0)
     want = torch_kde.kde_logsumexp_plain(grid * 200.0**0.5, buf[:n] * 200.0**0.5)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 5, 8])
+def test_kde_kernel_far_grid(cuda, D):
+    """Every grid point farther than sqrt(200) scaled units from every
+    sample: exp underflows in float32, the running max keeps the answer."""
+    rng = np.random.default_rng(D)
+    samples = rng.normal(0, 0.3, (20_000, D))
+    grid = rng.uniform(3, 6, (3000, D)) * rng.choice([-1, 1], (3000, D))
+    want = _kde_against_plain(cuda, grid, samples, 200.0)
+    assert float(want.max()) < -200
+
+
+def test_kde_kernel_max_in_last_tile(cuda):
+    """Every sample far but the last, nearest to every grid point."""
+    rng = np.random.default_rng(2)
+    samples = rng.normal(3.0, 0.2, (40_000, 2))
+    samples[-1] = [0.0, 0.0]
+    _kde_against_plain(cuda, rng.uniform(-0.3, 0.3, (4000, 2)), samples, 200.0)
+
+
+def test_kde_kernel_sorted_farthest_first(cuda):
+    """The main path's shape, grid pushed out, samples sorted by distance
+    from a grid corner, farthest first: the running max rises tile by tile."""
+    rng = np.random.default_rng(4)
+    samples = np.clip(rng.normal(0, 0.4, (100_000, 2)), -1, 1)
+    axis = np.linspace(-2.5, 2.5, 150)
+    grid = np.stack(np.meshgrid(axis, axis, indexing="ij"), -1).reshape(-1, 2)
+    samples = samples[np.argsort(-((samples - grid[0]) ** 2).sum(1))]
+    _kde_against_plain(cuda, grid, samples, 200.0)
+
+
+@pytest.mark.parametrize("D", [2, 4, 7])
+def test_kde_kernel_first_sample_far(cuda, D):
+    """The first 128 samples far away, the rest near: the sum of the first
+    near chunk overflows against the max of the far ones and is redone."""
+    rng = np.random.default_rng(D)
+    samples = rng.normal(0, 0.3, (6000, D))
+    samples[:128] += 4.0
+    _kde_against_plain(cuda, rng.uniform(-0.6, 0.6, (3000, D)), samples, 200.0)
+
+
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_kde_kernel_large_coordinates(cuda, D):
+    """Coordinates of 1e3 at bandwidth 0.05: scaled values near 1.4e4, where
+    the differences must be taken on the caller's scaled inputs."""
+    rng = np.random.default_rng(D)
+    samples = 1e3 + rng.normal(0, 0.3, (7000, D))
+    grid = 1e3 + rng.uniform(-1, 1, (777, D))
+    _kde_against_plain(cuda, grid, samples, 1.0 / (2 * 0.05**2))
 
 
 @pytest.mark.parametrize("F,A", [(3, 1), (5, 31), (256, 1000), (2, 129)])
