@@ -31,15 +31,28 @@ Phases, each failing the run (non-zero exit) if it fails:
    2-D FES (K2 branch). The kernels' launch counters are zeroed just before
    and read just after, and the outputs are checked against numpy
    references on a small input. The 2-D FES is then timed 5 times more.
-4. Training on the card against the same training by the port on the CPU,
+4. The CV calculators' file surface on the main path's data, the kernels'
+   counters zeroed before and read after (`cv_surface`): PCA, TICA and
+   HTICA trained on the 100,000 x 586 device matrix; a PLUMED colvars file
+   of time + the 1,171 features (20,000 frames: the depth cut keeps the
+   text near 210 MB) written and read back; the Filter on it; streaming
+   TICA (on-card Krylov solver) and HTICA from it against the in-memory
+   calculators; the deep-TICA and linear CVs saved as model.zip, loaded
+   back and projecting the file; FramesToCV.from_model_zip serving every
+   frame of the DCD (K1); the linear CVs on the card against the CPU on
+   5,000 frames.
+5. Training on the card against the same training by the port on the CPU,
    on a cut-down copy (20,000 frames, 2 tries, 2 epochs); then the main
    path's training cut to 2 epochs, through the calculator, once under
    torch's sync debug mode (host syncs by line of code) and once under
    torch.profiler (per step: host time, card time, sync calls).
 
 Prints the nvidia-smi line, the [smoke] lines (times beside the card's name
-and power limit), then one JSON line {"kernels": [...]}, then, as the last
-line, {"ok": true, "device": {...}}. Imports nothing of JAX.
+and power limit), then one JSON line {"kernels": [...]} (each kernel's
+launches summed over the main path and phase 4, and by path), then, as the
+last line, {"ok": true, "device": {...}}. The total time is the last
+[smoke] line.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -83,6 +96,16 @@ TRAIN_CONFIG = {
     },
 }
 CUT_FRAMES, CUT_TRIES, CUT_EPOCHS = 20_000, 2, 2
+
+# Phase 4: the CV file surface and the linear CVs at the main path's width.
+LINEAR_CONFIG = {"dimension": 2, "lag_time": 10, "features_normalization": "mean_std",
+                 "tica_regularization": 1e-6, "num_subspaces": 10,
+                 "subspaces_dimension": 5}
+COLVARS_FRAMES = 20_000   # the colvars file: a cut of depth from 100,000 (~210 MB)
+COLVARS_FMT = "%.6f"
+COLVARS_TOL = 1e-6        # half a unit of the 6th decimal + float32 rounding (< 8 nm)
+HTICA_STREAM_FEATURES = 580  # 10 equal subspaces of 58
+CARD_CPU_FRAMES = 5_000
 BREAKDOWN_EPOCHS = 2     # the training run under sync debug mode and the profiler
 FES_REPEATS = 5          # the 2-D FES timed again after the main path
 
@@ -102,6 +125,21 @@ PROJECTION_TOL = 1e-4           # the repo's projection contract
 # run to the same).
 CARD_CPU_LOSS_RTOL = 1e-4
 CARD_CPU_PROJECTION_TOL = 1e-4
+# TICA and HTICA at 586 features: C0 of the normalized features has a
+# condition number near 2e7 (`*_c0_condition`), so float32 rounding moves
+# the projections far more than the contract's 1e-4, in either package,
+# while the eigenvalues stay within 1e-4: one ulp of input noise moves them
+# by up to ~1e-2 (`*_ulp_noise_spread`, recorded in every run). Streaming
+# against in-memory differs by more than one ulp (float64 host statistics
+# and moments after a shift against float32 two-pass statistics and
+# centered products; the Krylov solver against a dense eigh) and is held
+# to 5e-2 after the sign fix; the card against the CPU (summation orders)
+# to 2e-2; both to 1e-4 on the eigenvalues. PCA is well conditioned and
+# held to the contract, 1e-4.
+EIGVAL_TOL = 1e-4
+STREAM_PROJECTION_TOL = 5e-2
+TICA_PROJECTION_TOL = 2e-2
+ZIP_TOL = 1e-5            # a model.zip projects as the calculator it came from
 
 
 def log(msg: str) -> None:
@@ -565,7 +603,9 @@ def main_path(coords: np.ndarray, tmp: str, stats) -> dict:
             check(s.launches == 0, "K3 has no caller on the main path")
         else:
             check(s.launches > 0, f"{s.name} was launched on the main path")
-    return result, calc
+    context = {"features": features, "kept_features": kept_features, "kept": kept,
+               "pdb_path": pdb_path, "dcd_path": dcd_path, "frames": frames}
+    return result, calc, context
 
 
 def count_syncs(fn):
@@ -659,7 +699,7 @@ def training_breakdown(calc_main) -> dict:
 
 
 def card_against_cpu(calc_main) -> dict:
-    """Phase 4: the same cut-down training on the card and on the CPU."""
+    """Phase 5: the same cut-down training on the card and on the CPU."""
     import copy
 
     from deep_cartograph_torch.cv.deep import DeepTICACalculator
@@ -692,9 +732,240 @@ def card_against_cpu(calc_main) -> dict:
     return result
 
 
+def align_signs(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a's columns flipped to correlate positively with b's."""
+    return a * np.sign(np.sum(a * b, axis=0))
+
+
+def with_ulp_noise(x):
+    """x with one float32 ulp of seeded relative noise: the spread a CV
+    shows between the two is its float32 conditioning floor."""
+    import torch
+
+    x = torch.as_tensor(x)
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(SEED))
+    return x * (1 + 6e-8 * noise.to(x.device))
+
+
+def c0_condition(calc) -> float:
+    """Condition number of the in-memory TICA calculator's C0, in float64."""
+    import torch
+
+    from deep_cartograph_torch.cv.tica_math import timelagged_covariances
+
+    c0 = timelagged_covariances(calc.x_t.double(), calc.x_lag.double())[0]
+    ev = torch.linalg.eigvalsh(c0)
+    return float(ev.max() / ev.min())
+
+
+def linear_calculator(cv: str, out: str, device, **config):
+    from deep_cartograph_torch.cv import cv_calculators_map
+
+    return cv_calculators_map[cv](dict(LINEAR_CONFIG, **config), out, device=device)
+
+
+def cv_surface(calc_deep, ctx: dict, tmp: str, stats, card: str, device="cuda") -> dict:
+    """Phase 4: the CV calculators' file surface and the linear CVs at the
+    main path's width (the kernels' counts zeroed before and read after):
+
+    1. PCA, TICA and HTICA (10 subspaces x 5) trained on the main path's
+       device matrix through _set_training_data + run();
+    2. a PLUMED colvars file of the main path's features (time + every
+       feature, COLVARS_FRAMES frames) written and read back;
+    3. the Filter on that file (std at the median) against the main path's
+       screen on the same values;
+    4. streaming TICA (one subspace, D > 256: the on-card Krylov solver) and
+       HTICA from the file against the in-memory calculators on the same
+       frames;
+    5. the deep-TICA and linear CVs saved as model.zip, loaded back with
+       CVCalculator.load, project_colvars of the file against the
+       calculators' own projection;
+    6. FramesToCV.from_model_zip of the deep-TICA and TICA zips serving every
+       frame of the DCD (K1), against project_data of the features;
+    7. the linear CVs on the card against the CPU on CARD_CPU_FRAMES frames.
+    """
+    import torch
+
+    from deep_cartograph_torch.cv.base import CVCalculator
+    from deep_cartograph_torch.deploy import FramesToCV
+    from deep_cartograph_torch.features.filter import Filter
+    from deep_cartograph_torch.io.colvars import read_features_matrix, write_colvars
+    from deep_cartograph_torch.stats.descriptors import quantile_mask, standard_deviation
+
+    # Reads parse the file: no same-run memory cache.
+    os.environ["DEEP_CARTO_COLVARS_CACHE_BYTES"] = "0"
+    features, kept_features, kept = ctx["features"], ctx["kept_features"], ctx["kept"]
+    labels = make_labels(N_ATOMS)
+    n_frames = kept_features.shape[0]
+    out: dict = {}
+    for st in stats:
+        st.launches = 0
+
+    # 1. Linear CVs at full depth on the device matrix.
+    linear = {}
+    for cv in ("pca", "tica", "htica"):
+        calc = linear_calculator(cv, os.path.join(tmp, "linear"), device)
+        calc.ref_topology_path = ctx["pdb_path"]
+        _, out[f"{cv}_set_data_s"] = synced(lambda: calc._set_training_data(
+            kept_features, np.zeros(n_frames, np.int64), kept))
+        _, out[f"{cv}_compute_cv_s"] = synced(calc.compute_cv)
+        (proj, cv_labels), out[f"{cv}_run_s"] = synced(calc.run)
+        check(proj.shape == (n_frames, 2) and bool(np.isfinite(proj).all())
+              and float(np.abs(proj).max()) <= 1 + 1e-5,
+              f"{cv} projection finite in [-1, 1], shape {proj.shape}")
+        if cv != "pca":
+            ev = np.asarray(calc.eigenvalues_)
+            check(bool(((ev > 0) & (ev <= 1 + 1e-4)).all()), f"{cv} eigenvalues {ev}")
+            out[f"{cv}_eigenvalues"] = ev.tolist()
+        linear[cv] = calc
+        log(f"[{card}] {cv} at {n_frames} x {len(kept)} on the card: compute_cv "
+            f"{out[f'{cv}_compute_cv_s'] * 1e3:.1f} ms, run() "
+            f"{out[f'{cv}_run_s'] * 1e3:.1f} ms (data to the calculator "
+            f"{out[f'{cv}_set_data_s'] * 1e3:.1f} ms)")
+
+    # 2. A colvars file: time + every feature, COLVARS_FRAMES frames.
+    path = os.path.join(tmp, "colvars.dat")
+    rows = features[:COLVARS_FRAMES]
+    data = np.column_stack([np.arange(COLVARS_FRAMES, dtype=np.float32), rows])
+    _, out["colvars_write_s"] = synced(lambda: write_colvars(
+        path, data, ["time"] + labels, fmt=COLVARS_FMT))
+    out["colvars_mb"] = os.path.getsize(path) / 1e6
+    (read_back, names), out["colvars_read_s"] = synced(lambda: read_features_matrix(path))
+    out["colvars_write_mb_s"] = out["colvars_mb"] / out["colvars_write_s"]
+    out["colvars_read_mb_s"] = out["colvars_mb"] / out["colvars_read_s"]
+    check(names == labels and read_back.shape == rows.shape,
+          f"colvars read back: {read_back.shape} columns {len(names)}")
+    out["colvars_max_abs_err"] = float(np.abs(read_back - rows).max())
+    log(f"[{card}] colvars {COLVARS_FRAMES} x {data.shape[1]} ({out['colvars_mb']:.1f} MB): "
+        f"write {out['colvars_write_s']:.2f} s ({out['colvars_write_mb_s']:.1f} MB/s), "
+        f"read {out['colvars_read_s']:.2f} s ({out['colvars_read_mb_s']:.1f} MB/s), "
+        f"max err {out['colvars_max_abs_err']:.3g}")
+    check(out["colvars_max_abs_err"] <= COLVARS_TOL,
+          f"colvars values within {COLVARS_TOL} ({out['colvars_max_abs_err']})")
+
+    # 3. The Filter on the file against the main path's screen on the same
+    # values (those the file holds).
+    flt, out["filter_file_s"] = synced(lambda: Filter(
+        {"std_quantile": STD_QUANTILE, "diptest_significance_level": None}, [path],
+        output_dir=os.path.join(tmp, "filter"), device=device).run())
+    keep = quantile_mask(standard_deviation(read_back, device=device), STD_QUANTILE)
+    want = [lab for lab, k in zip(labels, keep) if k]
+    out["filter_file_kept"] = len(flt)
+    out["filter_file_in_main_path_kept"] = len(set(flt) & set(kept))
+    log(f"[{card}] Filter on the file {out['filter_file_s']:.2f} s ({len(flt)} kept, "
+        f"{out['filter_file_in_main_path_kept']} of them in the main path's {len(kept)})")
+    check(flt == want, f"Filter on the file keeps the main path's screen "
+          f"({len(flt)} vs {len(want)})")
+    col_index = {lab: i for i, lab in enumerate(labels)}
+    file_kept = read_back[:, [col_index[lab] for lab in kept]]
+
+    # 4. Streaming TICA and HTICA from the file against in-memory on the
+    # same frames. HTICA takes the first 580 features: 10 subspaces of 58,
+    # blocked alike by the streaming path (equal subspaces) and in memory
+    # (split_subspaces).
+    for cv, names_cv in (("tica", kept), ("htica", kept[:HTICA_STREAM_FEATURES])):
+        cols = [col_index[lab] for lab in names_cv]
+        stream = linear_calculator(cv, os.path.join(tmp, "stream"), device,
+                                   streaming=True)
+        _, out[f"{cv}_stream_load_s"] = synced(
+            lambda: stream.load_training_data([path], features_list=names_cv))
+        check(stream._streaming, f"{cv} streams")
+        (got, _), out[f"{cv}_stream_run_s"] = synced(stream.run)
+        mems = []
+        for data in (read_back[:, cols], with_ulp_noise(read_back[:, cols])):
+            mem = linear_calculator(cv, os.path.join(tmp, "mem"), device)
+            mem._set_training_data(data, np.zeros(COLVARS_FRAMES, np.int64), names_cv)
+            mems.append((mem, mem.run()[0]))
+        (mem, want_proj), (_, jitter) = mems
+        ev_err = float(np.abs(np.asarray(stream.eigenvalues_) - mem.eigenvalues_).max())
+        proj_err = float(np.abs(align_signs(got, want_proj) - want_proj).max())
+        out[f"{cv}_stream_eigenvalues"] = np.asarray(stream.eigenvalues_).tolist()
+        out[f"{cv}_stream_eigenvalue_err"] = ev_err
+        out[f"{cv}_stream_projection_err"] = proj_err
+        out[f"{cv}_stream_ulp_noise_spread"] = float(
+            np.abs(align_signs(jitter, want_proj) - want_proj).max())
+        out[f"{cv}_c0_condition"] = c0_condition(mem)
+        log(f"[{card}] streaming {cv} from the file ({len(names_cv)} features): load "
+            f"{out[f'{cv}_stream_load_s']:.2f} s, run() {out[f'{cv}_stream_run_s']:.2f} s; "
+            f"against in memory: eigenvalues {ev_err:.3g}, projection {proj_err:.3g} "
+            f"(in memory, one-ulp input noise: {out[f'{cv}_stream_ulp_noise_spread']:.3g}; "
+            f"C0 condition number {out[f'{cv}_c0_condition']:.3g})")
+        check(ev_err <= EIGVAL_TOL, f"streaming {cv} eigenvalues ({ev_err})")
+        check(proj_err <= STREAM_PROJECTION_TOL, f"streaming {cv} projection ({proj_err})")
+        linear[f"{cv}_stream"] = stream
+
+    # 5. model.zip: save, load back, project the file.
+    calc_deep.parent_output_path = os.path.join(tmp, "deep")
+    calc_deep.ref_topology_path = ctx["pdb_path"]
+    zips = {}
+    for name, calc in (("deep_tica", calc_deep), ("pca", linear["pca"]),
+                       ("tica", linear["tica"]), ("htica", linear["htica"])):
+        calc.create_output_folders()
+        _, out[f"{name}_save_s"] = synced(calc.save_model)
+        zips[name] = os.path.join(str(calc.output_path), "model.zip")
+        loaded, out[f"{name}_load_s"] = synced(lambda: CVCalculator.load(
+            zips[name], os.path.join(tmp, "load", name), device=device))
+        (proj, _), out[f"{name}_project_colvars_s"] = synced(
+            lambda: loaded.project_colvars([path]))
+        ref = calc.project_data(file_kept)
+        out[f"{name}_zip_err"] = float(np.abs(proj - ref).max())
+        log(f"[{card}] {name} model.zip: save {out[f'{name}_save_s'] * 1e3:.1f} ms, load "
+            f"{out[f'{name}_load_s'] * 1e3:.1f} ms, project_colvars "
+            f"{out[f'{name}_project_colvars_s']:.2f} s (err {out[f'{name}_zip_err']:.3g})")
+        check(out[f"{name}_zip_err"] <= ZIP_TOL,
+              f"{name} model.zip projects the file as the calculator ({out[f'{name}_zip_err']})")
+
+    # 6. Serving a zip from the DCD (K1).
+    for name in ("deep_tica", "tica"):
+        pipeline, out[f"{name}_from_model_zip_s"] = synced(lambda: FramesToCV.from_model_zip(
+            zips[name], ctx["pdb_path"], os.path.join(tmp, "serve", name), device=device))
+        served, out[f"{name}_serve_s"] = synced(lambda: pipeline(ctx["frames"]))
+        calc = calc_deep if name == "deep_tica" else linear["tica"]
+        err = float(np.abs(served - calc.project_data(kept_features)).max())
+        out[f"{name}_serve_err"] = err
+        log(f"[{card}] from_model_zip {name}: load "
+            f"{out[f'{name}_from_model_zip_s'] * 1e3:.1f} ms, serve {n_frames} frames "
+            f"{out[f'{name}_serve_s'] * 1e3:.1f} ms (err {err:.3g})")
+        check(served.shape == (n_frames, 2) and err <= PROJECTION_TOL,
+              f"{name} served from model.zip matches project_data ({err})")
+    out["launches"] = {st.name: st.launches for st in stats}
+    check(out["launches"]["pair_distances_kernel"] > 0,
+          "K1 was launched serving the model.zip")
+
+    # 7. The card against the CPU, on a cut; and, on the card, the same
+    # training from inputs with one ulp of noise (the conditioning floor).
+    cut = kept_features[:CARD_CPU_FRAMES]
+    noisy = with_ulp_noise(cut)
+    for cv in ("pca", "tica", "htica"):
+        runs = []
+        for dev, data in ((device, cut), ("cpu", cut), (device, noisy)):
+            calc = linear_calculator(cv, os.path.join(tmp, f"cut_{dev}"), dev)
+            calc._set_training_data(data, None, kept)
+            runs.append((calc.run()[0], calc.eigenvalues_))
+        (on_card, ev_card), (host, ev_host), (jitter, _) = runs
+        err = float(np.abs(align_signs(on_card, host) - host).max())
+        out[f"{cv}_card_cpu_err"] = err
+        out[f"{cv}_ulp_noise_spread"] = float(
+            np.abs(align_signs(jitter, on_card) - on_card).max())
+        log(f"[{card}] {cv} on {CARD_CPU_FRAMES} frames, card against CPU: {err:.3g} "
+            f"(one-ulp input noise on the card: {out[f'{cv}_ulp_noise_spread']:.3g})")
+        tol = CARD_CPU_PROJECTION_TOL if cv == "pca" else TICA_PROJECTION_TOL
+        check(err <= tol, f"{cv} on the card matches the CPU ({err})")
+        if cv != "pca":
+            ev_err = float(np.abs(ev_card - ev_host).max())
+            out[f"{cv}_card_cpu_eigenvalue_err"] = ev_err
+            check(ev_err <= EIGVAL_TOL, f"{cv} eigenvalues on the card match the CPU "
+                                        f"({ev_err})")
+    del file_kept, read_back
+    torch.cuda.empty_cache()
+    log(json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -732,9 +1003,12 @@ def main() -> int:
             f"library {rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} "
             f"by {rec['bound_by']})")
 
-    # Phase 3: the main path.
+    # Phase 3: the main path; phase 4: the CV file surface on its data.
+    stats = [k1.STATS, k2.STATS, k3.STATS]
     with tempfile.TemporaryDirectory() as tmp:
-        result, calc = main_path(coords, tmp, [k1.STATS, k2.STATS, k3.STATS])
+        result, calc, ctx = main_path(coords, tmp, stats)
+        surface = cv_surface(calc, ctx, tmp, stats, card)
+        del ctx
     epochs = result["epoch_s"]
     log(f"[{card}] featurize {N_FRAMES / result['featurize_s']:.0f} frames/s "
         f"({result['featurize_s']:.3f} s, host decode alone "
@@ -754,7 +1028,7 @@ def main() -> int:
         f"(again: {', '.join(f'{t * 1e3:.2f}' for t in result['fes_2d_again_s'])} ms)")
     log(json.dumps(result))
 
-    # Phase 4: the card against the CPU; one training step in detail.
+    # Phase 5: the card against the CPU; one training step in detail.
     compare = card_against_cpu(calc)
     compare.update(training_breakdown(calc))
     log(f"[{card}] cut-down training ({CUT_FRAMES} frames, {CUT_TRIES} tries, "
@@ -776,9 +1050,13 @@ def main() -> int:
     kernels = []
     for key in ("K1", "K2", "K3"):
         rec = dict(records[key])
-        rec["launches"] = result["launches"][rec["name"]]
+        by_path = {"main_path": result["launches"][rec["name"]],
+                   "cv_surface": surface["launches"][rec["name"]]}
+        rec["launches"] = sum(by_path.values())
+        rec["launches_by_path"] = by_path
         rec["kernel_ms"] = rec["ms"]
         kernels.append(rec)
+    log(f"[{card}] total {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,0 +1,44 @@
+"""CV calculators of the port and their registry (`cv_calculators_map`,
+which `CVCalculator.load` reads a model.zip's `cv_name` against)."""
+
+from deep_cartograph_torch.cv.base import CVCalculator, cv_components_map, cv_names_map
+from deep_cartograph_torch.cv.deep import DeepTICACalculator, NonLinear
+from deep_cartograph_torch.cv.linear import (
+    HTICACalculator,
+    LinearCalculator,
+    PCACalculator,
+    TICACalculator,
+)
+
+
+def _not_ported(name: str, item: str):
+    class NotPorted:
+        def __init__(self, *args, **kwargs):
+            raise NotImplementedError(
+                f"The {name} calculator is not ported yet ({item})."
+            )
+
+    NotPorted.__name__ = f"{name}Calculator"
+    return NotPorted
+
+
+AECalculator = _not_ported("AE", "ROADMAP Queue 1 item 4, AE and VAE")
+VAECalculator = _not_ported("VAE", "ROADMAP Queue 1 item 4, AE and VAE")
+UMAP = _not_ported("UMAP", "ROADMAP Queue 1 item 7, geometry analysis and UMAP")
+
+cv_calculators_map = {
+    "pca": PCACalculator,
+    "ae": AECalculator,
+    "tica": TICACalculator,
+    "htica": HTICACalculator,
+    "deep_tica": DeepTICACalculator,
+    "vae": VAECalculator,
+    "umap": UMAP,
+}
+
+__all__ = [
+    "CVCalculator", "LinearCalculator", "NonLinear", "PCACalculator",
+    "TICACalculator", "HTICACalculator", "DeepTICACalculator", "AECalculator",
+    "VAECalculator", "UMAP", "cv_calculators_map", "cv_names_map",
+    "cv_components_map",
+]

@@ -16,16 +16,22 @@ Differences, on purpose:
   as the reference the tests hold the batched tries to.
 - Everything runs on the calculator's device (CUDA unless the caller asks
   for the CPU); there is no small-work routing to the host.
+- model.zip holds the parameters in Flax's msgpack layout, written and
+  read without Flax (`models/msgpack.py`), so either package loads the
+  other's; `cv_weights.pt` is the port's own CV traced to TorchScript.
+  Try checkpoints are `model.msgpack` + `score.txt` (no Orbax mirror).
 - Not yet ported (ROADMAP): batchnorm folding for the deployed net (a
-  config with batchnorm raises), try checkpoints, plots, sensitivity
-  analysis, model.zip, the AE and VAE calculators.
+  config with batchnorm raises; Queue 1 item 4), the loss and eigenvalue
+  plots (item 6), the AE and VAE calculators (item 4).
 """
 
 from __future__ import annotations
 
 import copy
+import json
 import logging
 import math
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,19 +39,24 @@ import torch
 
 from deep_cartograph_torch.cv.base import CVCalculator, cv_names_map
 from deep_cartograph_torch.cv.tica_math import (
-    create_timelagged_dataset_multi,
     generalized_eigh,
     tica,
     timelagged_covariances,
 )
 from deep_cartograph_torch.deploy import DeepTICAProjection
 from deep_cartograph_torch.models.networks import DeepTICANet, DeepTICAStack, Params
+from deep_cartograph_torch.models.torch_export import (
+    TorchScriptProjector,
+    save_torchscript,
+)
 from deep_cartograph_torch.models.training import (
     KLAnnealing,
     Trainer,
     TrainerConfig,
     TrainResult,
 )
+from deep_cartograph_torch.models.weights import load_params, save_params
+from deep_cartograph_torch.utils.common import remove_files, zip_files
 from deep_cartograph_torch.utils.device import DeviceLike
 
 logger = logging.getLogger(__name__)
@@ -68,8 +79,8 @@ def validation_never_improved(valid_losses) -> bool:
 class NonLinear(CVCalculator):
     """Base class of the network-based CV calculators."""
 
-    def __init__(self, configuration=None, device: DeviceLike = None):
-        super().__init__(configuration, device)
+    def __init__(self, configuration=None, output_path=None, device: DeviceLike = None):
+        super().__init__(configuration, output_path, device)
 
         self.training_config: Dict = self.configuration.get("training", {})
         self.general_config: Dict = self.training_config.get("general", {})
@@ -114,6 +125,8 @@ class NonLinear(CVCalculator):
         self.module = None
         self.post_mean: Optional[np.ndarray] = None
         self.post_range: Optional[np.ndarray] = None
+        self.training_metrics_paths: List[str] = []
+        self._torch_projector: Optional[TorchScriptProjector] = None
 
     # ------------------------------------------------------------------
     # Option plumbing
@@ -249,6 +262,7 @@ class NonLinear(CVCalculator):
 
         best: Optional[TrainResult] = None
         for try_num, result in self.try_results:
+            self._save_try_checkpoint(result, try_num)
             if validation_never_improved(result.metrics.get("valid_loss") or []):
                 logger.warning(
                     "Try %d: validation loss did not decrease during training.",
@@ -324,6 +338,22 @@ class NonLinear(CVCalculator):
         )
         return list(zip(range(1, T + 1), results))
 
+    def _save_try_checkpoint(self, result: TrainResult, try_num: int) -> None:
+        """Each try's selected model under training/checkpoints/try_N/
+        (model.msgpack, score.txt), once the output folders exist."""
+        if getattr(self, "training_output_folder", None) is None:
+            return
+        try:
+            folder = os.path.join(str(self.training_output_folder), "checkpoints",
+                                  f"try_{try_num}")
+            os.makedirs(folder, exist_ok=True)
+            save_params(result.params, os.path.join(folder, "model.msgpack"))
+            with open(os.path.join(folder, "score.txt"), "w") as fh:
+                fh.write(f"{result.score:.7g} ({result.description}, "
+                         f"epoch {result.best_epoch})\n")
+        except OSError as exc:  # a checkpoint never stops the training
+            logger.warning("Could not save try checkpoint: %s", exc)
+
     def _validate_result(self, result: TrainResult) -> bool:
         """Subclass hook for sanity bounds (DeepTICA loss >= -dim)."""
         return True
@@ -331,6 +361,12 @@ class NonLinear(CVCalculator):
     def finalize_model(self) -> None:
         """Post-training hook (DeepTICA fits its output TICA layer here)."""
         self.architecture = self.build_architecture_dict()
+
+    def compute_cv(self) -> None:
+        if self.train():
+            self.plot_training_metrics()
+        else:
+            self.cv = None
 
     # ------------------------------------------------------------------
     # Projection + postprocessing (latent min-max to [-1, 1];
@@ -351,10 +387,89 @@ class NonLinear(CVCalculator):
         self.architecture["post_range"] = self.post_range.tolist()
 
     def project_data(self, data, normalize_data: bool = True) -> np.ndarray:
+        if self._torch_projector is not None:
+            return self._torch_projector(data)
         out = self.latent(data)
         if self.post_mean is not None:
             out = (out - self.post_mean) / self.post_range
         return out.astype(np.float32)
+
+    # ------------------------------------------------------------------
+    # Persistence
+    # ------------------------------------------------------------------
+    def save_weights(self, weights_path: str) -> None:
+        """TorchScript weights, for PLUMED."""
+        save_torchscript(self.projection(), self.num_features, weights_path)
+
+    def save_model(self) -> None:
+        super().save_model()
+        m = str(self.model_output_folder)
+        save_params(self.params, os.path.join(m, "flax_params.msgpack"))
+        with open(os.path.join(m, "architecture.json"), "w") as fh:
+            json.dump(self.architecture, fh)
+        self.save_weights(os.path.join(m, "cv_weights.pt"))
+        self._zip_and_clean_model()
+
+    def _load_from_folder(self, folder_path: str) -> None:
+        """The parameters and architecture of a model.zip; a zip holding
+        only TorchScript weights is served through them."""
+        super()._load_from_folder(folder_path)
+        m = str(self.model_output_folder)
+        arch_path = os.path.join(m, "architecture.json")
+        params_path = os.path.join(m, "flax_params.msgpack")
+        ts_path = os.path.join(m, "cv_weights.pt")
+        if os.path.exists(arch_path) and os.path.exists(params_path):
+            with open(arch_path) as fh:
+                self.architecture = json.load(fh)
+            self._restore_from_architecture()
+            self.params = {k: v.to(self.device) for k, v in load_params(params_path).items()}
+            self.build_module_from_architecture()
+            self.cv = self
+        elif os.path.exists(ts_path):
+            logger.info("No msgpack weights in the model; loading the TorchScript "
+                        "weights.")
+            self._torch_projector = TorchScriptProjector(ts_path, self.device)
+            self.cv = self
+        else:
+            raise FileNotFoundError(f"CV model weights not found in {m}")
+
+    def _restore_from_architecture(self) -> None:
+        arch = self.architecture
+        for name in ("post_mean", "post_range"):
+            value = arch.get(name)
+            setattr(self, name, None if value is None else np.asarray(value))
+        if arch.get("norm_mean") is not None:
+            self.features_norm_mean = np.asarray(arch["norm_mean"])
+            self.features_norm_range = np.asarray(arch["norm_range"])
+
+    def build_module_from_architecture(self) -> None:
+        raise NotImplementedError
+
+    def get_cv_parameters(self) -> Dict:
+        return {"cv_name": self.cv_name, "cv_dimension": self.cv_dimension,
+                "weights_path": getattr(self, "weights_path", None)}
+
+    def get_cv_type(self) -> str:
+        return "non-linear"
+
+    def plot_training_metrics(self) -> None:
+        """The loss curves (.npy, zipped into training_metrics.zip) and the
+        model score. The plots wait for ROADMAP Queue 1 item 6."""
+        if self.metrics is None:
+            return
+        folder = str(self.training_output_folder)
+        if self.training_config.get("save_loss", True):
+            for key in ("train_loss", "valid_loss", "epoch"):
+                if key in self.metrics:
+                    path = os.path.join(folder, f"{key}.npy")
+                    np.save(path, np.asarray(self.metrics[key]))
+                    self.training_metrics_paths.append(path)
+            np.savetxt(os.path.join(folder, "model_score.txt"),
+                       np.asarray([self.cv_score]), fmt="%.7g")
+        if self.training_metrics_paths:
+            zip_files(os.path.join(folder, "training_metrics.zip"),
+                      *self.training_metrics_paths)
+            remove_files(*self.training_metrics_paths)
 
 
 def deep_tica_batch_eigvals(module: DeepTICAStack, params: Params, batch,
@@ -391,8 +506,8 @@ def make_deep_tica_loss(module: DeepTICAStack, reg: float, dim: int):
 class DeepTICACalculator(NonLinear):
     """DeepTICA CV (cf. reference cv_calculator.py:2507-2627)."""
 
-    def __init__(self, configuration=None, device: DeviceLike = None):
-        super().__init__(configuration, device)
+    def __init__(self, configuration=None, output_path=None, device: DeviceLike = None):
+        super().__init__(configuration, output_path, device)
         self.cv_name = "deep_tica"
         self.tica_reg = self.configuration.get("tica_regularization", 1e-6)
         self.x_t: Optional[torch.Tensor] = None
@@ -402,18 +517,6 @@ class DeepTICACalculator(NonLinear):
         self.tica_evecs: Optional[np.ndarray] = None
         self.eigenvalues_: Optional[np.ndarray] = None
         self.net = None
-
-    def _lag_pairs(self, data: torch.Tensor, labels: Optional[np.ndarray]):
-        """Time-lagged pairs per trajectory (label), never across two."""
-        lag = self.configuration.get("lag_time", 1)
-        if labels is None:
-            blocks = [data]
-        else:
-            blocks = [
-                data[torch.as_tensor(np.nonzero(labels == lab)[0], device=data.device)]
-                for lab in np.unique(labels)
-            ]
-        return create_timelagged_dataset_multi(blocks, lag)
 
     def _set_training_data(self, features, traj_labels, feature_names) -> None:
         super()._set_training_data(features, traj_labels, feature_names)
@@ -487,16 +590,62 @@ class DeepTICACalculator(NonLinear):
         )
         self.architecture["tica_evecs"] = self.tica_evecs.tolist()
 
-    def projection(self) -> DeepTICAProjection:
+    def build_module_from_architecture(self) -> None:
+        arch = self.architecture
+        if arch.get("tica_evecs") is not None:
+            self.tica_evecs = np.asarray(arch["tica_evecs"])
+        self.net = DeepTICANet(arch["layers"], arch["encoder_options"], self.params,
+                               arch.get("norm_mean"), arch.get("norm_range")
+                               ).to(self.device)
+
+    def projection(self):
         """The trained CV as a serving module (`deploy.FramesToCV`): net,
-        TICA layer and post-normalization, as far as they are fitted."""
+        TICA layer and post-normalization, as far as they are fitted (or
+        the TorchScript module of a zip that holds only that)."""
+        if self._torch_projector is not None:
+            return self._torch_projector.module
         # a copy: FramesToCV moves its projection to its own device
         return DeepTICAProjection(copy.deepcopy(self.net), self.tica_evecs,
                                   self.post_mean, self.post_range)
 
+    def _evecs(self) -> Optional[torch.Tensor]:
+        if self.tica_evecs is None:
+            return None
+        return torch.as_tensor(self.tica_evecs, dtype=torch.float32, device=self.device)
+
     @torch.no_grad()
     def latent(self, data) -> np.ndarray:
+        if self._torch_projector is not None:
+            raise RuntimeError("latent() is not available for a TorchScript-only model")
         out = self.net(self._as_device_matrix(data))
         if self.tica_evecs is not None:
-            out = out @ torch.as_tensor(self.tica_evecs, device=self.device)
+            out = out @ self._evecs()
         return out.cpu().numpy()
+
+    def sensitivity_analysis(self, chunk_frames: int = 4096) -> None:
+        """Mean |d cv_k / d x_j| over the training set and the CV
+        components (before post-normalization), by `vmap(jacrev)` over
+        chunks of frames on the device."""
+        from torch.func import jacrev, vmap
+
+        evecs = self._evecs()
+
+        def forward(x):
+            out = self.net(x[None])
+            return (out if evecs is None else out @ evecs)[0]
+
+        jac_of = vmap(jacrev(forward))
+        total = torch.zeros(self.num_features, dtype=torch.float64, device=self.device)
+        data = self.training_data
+        for s in range(0, data.shape[0], chunk_frames):
+            jac = jac_of(data[s : s + chunk_frames])        # (n, n_cvs, features)
+            total += jac.abs().sum((0, 1)).double()
+        sens = (total / (data.shape[0] * self.cv_dimension)).float().cpu().numpy()
+        self._save_sensitivity(self.features_ref_labels, sens,
+                               str(self.sensitivity_output_folder))
+
+    def plot_training_metrics(self) -> None:
+        super().plot_training_metrics()
+        if self.eigenvalues_ is not None:
+            np.savetxt(os.path.join(str(self.training_output_folder), "eigenvalues.txt"),
+                       np.asarray(self.eigenvalues_), fmt="%.7g")

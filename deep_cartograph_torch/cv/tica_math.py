@@ -126,3 +126,16 @@ def tica(
     evals = w[:out_features].cpu().numpy()
     evecs = _fix_sign(v[:, :out_features].cpu().numpy())
     return evals, evecs
+
+
+def split_subspaces(n_features: int, num_subspaces: int) -> List[np.ndarray]:
+    """Column index blocks of the reference HTICA's torch.split: blocks of
+    n // k columns, and a smaller trailing block when k does not divide n."""
+    split_size = n_features // num_subspaces
+    if split_size == 0:
+        raise ValueError(
+            f"Number of subspaces {num_subspaces} is larger than number of "
+            f"features {n_features}."
+        )
+    return [np.arange(start, min(start + split_size, n_features))
+            for start in range(0, n_features, split_size)]

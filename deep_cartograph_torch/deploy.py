@@ -8,11 +8,15 @@ CV, without leaving the device between the two steps:
     cv_values = pipeline(coords_chunk)      # (C, A, 3) -> (C, dim)
 
 A projection is one of the two modules below; `models/weights.py` builds
-them from a trained CV's arrays.
+them from a trained CV's arrays, and a trained calculator gives its own
+(`projection()`). `FramesToCV.from_model_zip` serves a saved model.zip:
+
+    pipeline = FramesToCV.from_model_zip("model.zip", "topology.pdb")
 """
 
 from __future__ import annotations
 
+import tempfile
 from typing import List, Optional
 
 import numpy as np
@@ -95,3 +99,31 @@ class FramesToCV:
     def __call__(self, coords) -> np.ndarray:
         """(C, A, 3) Angstrom frames -> (C, cv_dimension) CV values."""
         return self.eval_raw(coords).cpu().numpy()
+
+    @classmethod
+    def from_model_zip(
+        cls,
+        model_path: str,
+        topology_path: str,
+        output_path: Optional[str] = None,
+        device: DeviceLike = None,
+    ) -> "FramesToCV":
+        """Serve a model.zip (written by the port or by the JAX package) on
+        `topology_path`: the model's features are translated from its
+        reference topology onto this one. `device`: None means CUDA."""
+        from deep_cartograph_torch.cv.base import CVCalculator
+        from deep_cartograph_torch.features.translator import Translator
+
+        calculator = CVCalculator.load(model_path, output_path or tempfile.mkdtemp(),
+                                       device=device)
+        if calculator.ref_topology_path is None:
+            raise ValueError(f"{model_path} holds no reference topology to translate "
+                             "its features from.")
+        translated = Translator(calculator.ref_topology_path, topology_path,
+                                calculator.features_ref_labels).run()
+        if None in translated:
+            raise ValueError(
+                "Some model features cannot be translated to the serving topology."
+            )
+        return cls(calculator.projection(), Topology.from_file(topology_path),
+                   translated, device=device)

@@ -1,9 +1,12 @@
-"""Host-side topology model: PDB parsing and atom metadata.
+"""Host-side topology model: PDB parsing and writing, atom metadata.
 
-The part of the JAX package's io/topology.py that `Topology.from_pdb` and
-`features.grammar.compile_plan` use, copied so the port imports nothing of
-the JAX package. Parsing is host-side (not hot); coordinates become numpy
-arrays ready for device upload.
+The part of the JAX package's io/topology.py that the port uses
+(`Topology.from_pdb`/`from_file`, `features.grammar.compile_plan`, the
+residue sequence of the topology mapper, `write_pdb`/`create_pdb` of the
+model.zip and the sensitivity maps), copied so the port imports nothing of
+the JAX package. Only PDB is read; the other topology formats (GRO, ...)
+come with ROADMAP Queue 1 item 6. Parsing is host-side (not hot);
+coordinates become numpy arrays ready for device upload.
 """
 
 from __future__ import annotations
@@ -23,6 +26,16 @@ PROTEIN_RESNAMES: Set[str] = {
 }
 
 BACKBONE_NAMES: Set[str] = {"N", "CA", "C", "O"}
+
+# 3-letter -> 1-letter amino acid code (for sequence alignment / topology mapping).
+AA_THREE_TO_ONE: Dict[str, str] = {
+    "ALA": "A", "ARG": "R", "ASN": "N", "ASP": "D", "CYS": "C", "GLN": "Q",
+    "GLU": "E", "GLY": "G", "HIS": "H", "ILE": "I", "LEU": "L", "LYS": "K",
+    "MET": "M", "PHE": "F", "PRO": "P", "SER": "S", "THR": "T", "TRP": "W",
+    "TYR": "Y", "VAL": "V",
+    "HSD": "H", "HSE": "H", "HSP": "H", "HID": "H", "HIE": "H", "HIP": "H",
+    "CYX": "C", "CYM": "C", "ASH": "D", "GLH": "E", "LYN": "K", "MSE": "M",
+}
 
 
 @dataclass
@@ -57,6 +70,20 @@ class Topology:
         mask = evaluate_selection(selection, self)
         return np.nonzero(mask)[0]
 
+    def residue_sequence(self) -> Tuple[str, List[int]]:
+        """One-letter sequence and resid list, residues in file order."""
+        seq: List[str] = []
+        resid_list: List[int] = []
+        seen: Set[Tuple[str, int]] = set()
+        for i in range(self.n_atoms):
+            key = (str(self.chain_ids[i]), int(self.resids[i]))
+            if key in seen:
+                continue
+            seen.add(key)
+            seq.append(AA_THREE_TO_ONE.get(str(self.resnames[i]), "X"))
+            resid_list.append(int(self.resids[i]))
+        return "".join(seq), resid_list
+
     def atom_index(self, name: str, resid: int) -> int:
         """0-based index of the first atom with given name+resid."""
         hits = np.nonzero((self.names == name) & (self.resids == resid))[0]
@@ -67,6 +94,25 @@ class Topology:
     @classmethod
     def from_pdb(cls, path: str) -> "Topology":
         return parse_pdb(path)
+
+    @classmethod
+    def from_file(cls, path: str) -> "Topology":
+        if path.lower().endswith(".pdb"):
+            return parse_pdb(path)
+        raise NotImplementedError(
+            f"Topology format of {path}: the port reads PDB only; the other "
+            "formats come with ROADMAP Queue 1 item 6 (tools, pipeline, CLI)."
+        )
+
+    def write_pdb(
+        self,
+        path: str,
+        positions: Optional[np.ndarray] = None,
+        occupancies: Optional[np.ndarray] = None,
+        bfactors: Optional[np.ndarray] = None,
+        include_conect: bool = False,
+    ) -> None:
+        write_pdb(self, path, positions, occupancies, bfactors, include_conect)
 
 
 # Atom names that ARE two-letter elements when they stand alone (ions and
@@ -202,3 +248,52 @@ def parse_pdb(path: str, model: int = 1) -> Topology:
         bonds=bonds,
         source_path=path,
     )
+
+
+def _format_atom_name(name: str, element: str) -> str:
+    """PDB atom-name column rules: 1-char elements start at column 14."""
+    if len(name) >= 4:
+        return name[:4]
+    if len(element) == 1 and len(name) <= 3:
+        return f" {name:<3}"
+    return f"{name:<4}"
+
+
+def write_pdb(
+    top: Topology,
+    path: str,
+    positions: Optional[np.ndarray] = None,
+    occupancies: Optional[np.ndarray] = None,
+    bfactors: Optional[np.ndarray] = None,
+    include_conect: bool = False,
+) -> None:
+    """Write a PLUMED-friendly PDB: no CRYST1, no CONECT unless asked."""
+    pos = np.asarray(positions) if positions is not None else top.positions
+    occ = np.asarray(occupancies) if occupancies is not None else top.occupancies
+    bf = np.asarray(bfactors) if bfactors is not None else top.bfactors
+    lines: List[str] = []
+    for i in range(top.n_atoms):
+        serial = (i + 1) % 100000
+        name_field = _format_atom_name(str(top.names[i]), str(top.elements[i]))
+        resname = str(top.resnames[i])[:4]
+        chain = (str(top.chain_ids[i]) or " ")[:1]
+        resid = int(top.resids[i]) % 10000
+        x, y, z = pos[i]
+        seg = str(top.segids[i])[:4]
+        elem = str(top.elements[i])[:2]
+        lines.append(
+            f"ATOM  {serial:>5} {name_field}{'':1}{resname:<4}{chain}{resid:>4}    "
+            f"{x:8.3f}{y:8.3f}{z:8.3f}{occ[i]:6.2f}{bf[i]:6.2f}      "
+            f"{seg:<4}{elem:>2}\n"
+        )
+    if include_conect and top.bonds is not None and len(top.bonds) > 0:
+        for a, b in top.bonds:
+            lines.append(f"CONECT{a + 1:>5}{b + 1:>5}\n")
+    lines.append("END\n")
+    with open(path, "w") as fh:
+        fh.writelines(lines)
+
+
+def create_pdb(structure_path: str, file_name: str) -> None:
+    """Round-trip a structure file into a clean PDB."""
+    Topology.from_file(structure_path).write_pdb(file_name)

@@ -4,7 +4,9 @@ The JAX side's parameter tree of a deep-TICA calculator is {"nn":
 {"dense_<i>": {"kernel", "bias"}, "bn_scale_<i>", "bn_bias_<i>"}}. The
 port's parameters are the same tree flattened to "nn/dense_<i>/kernel"
 keys, with Flax's (in, out) kernels, so they carry across unchanged, with
-or without a leading tries axis.
+or without a leading tries axis. A model.zip stores them as the JAX
+package does, in Flax's msgpack layout (`flax_params.msgpack`), through
+`models/msgpack.py`: `save_params` / `load_params`.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from deep_cartograph_torch.deploy import DeepTICAProjection, LinearProjection
+from deep_cartograph_torch.models import msgpack
 from deep_cartograph_torch.models.networks import DeepTICANet
 
 
@@ -53,6 +56,19 @@ def params_to_flax(params: Dict[str, torch.Tensor]) -> Dict:
     return unflatten_tree(
         {k: v.detach().cpu().numpy() for k, v in params.items()}
     )
+
+
+def save_params(params: Dict[str, torch.Tensor], path: str) -> None:
+    """The port's parameters as a Flax msgpack file (what Flax's
+    `to_bytes` writes for the same tree)."""
+    with open(path, "wb") as fh:
+        fh.write(msgpack.packb(params_to_flax(params)))
+
+
+def load_params(path: str) -> Dict[str, torch.Tensor]:
+    """A Flax msgpack parameter file as the port's parameters."""
+    with open(path, "rb") as fh:
+        return params_from_flax(msgpack.unpackb(fh.read()))
 
 
 def _tensor(x) -> torch.Tensor:

@@ -9,8 +9,9 @@ package exactly: float32 `(x - min) / span * num_bins`, truncated, clipped
 to the last bin, with span 1 for a constant feature.
 
 Statistics the filter reads are rounded to 3 decimals on the host, as in
-the reference. `dip_pvalues` and the mesh sharding of feature blocks come
-with later slices (ROADMAP).
+the reference. The dip test (`dip_pvalues`) runs on the host in numpy, one
+feature at a time; the JAX package's native batch routine comes with
+ROADMAP Queue 1 item 9 and the mesh sharding of feature blocks with item 8.
 """
 
 from __future__ import annotations
@@ -120,6 +121,15 @@ def min_value_filter(
     dev = resolve_device(device)
     mins = torch.as_tensor(features).to(dev).amin(0).cpu().numpy()
     return [bool(v <= threshold) for v in mins]
+
+
+def dip_pvalues(features: Matrix) -> np.ndarray:
+    """Hartigan dip-test p-value of every feature (host, numpy)."""
+    from deep_cartograph_torch.stats.dip import dip_pvalue
+
+    x = features.cpu().numpy() if isinstance(features, torch.Tensor) else features
+    x = np.asarray(x)
+    return np.asarray([dip_pvalue(x[:, j])[1] for j in range(x.shape[1])])
 
 
 def quantile_mask(values: np.ndarray, quantile: float) -> np.ndarray:

@@ -212,3 +212,123 @@ def test_deep_tica_training_on_the_card_matches_the_cpu(cuda):
         np.testing.assert_allclose(a.metrics["valid_loss"], b.metrics["valid_loss"],
                                    rtol=1e-4)
     np.testing.assert_allclose(card.project_data(x), host.project_data(x), atol=1e-4)
+
+
+def _align_signs(a, b):
+    return a * np.sign(np.sum(a * b, axis=0))
+
+
+def _gapped_features(n=3000, d=20, seed=0):
+    """Two slow AR(1) signals (0.999, 0.99) and d fast ones (0.3), mixed into
+    d features with a little white noise: the top two TICA components stand
+    clear of the rest, so they are well determined in float32 (a random
+    walk per feature would give near-degenerate eigenvalues)."""
+    rng = np.random.default_rng(seed)
+    rho = np.r_[0.999, 0.99, np.full(d, 0.3)]
+    z = np.zeros((n, d + 2))
+    for t in range(1, n):
+        z[t] = rho * z[t - 1] + np.sqrt(1 - rho ** 2) * rng.standard_normal(d + 2)
+    mix = rng.standard_normal((d + 2, d))
+    return (z @ mix + 0.3 * rng.standard_normal((n, d))).astype(np.float32)
+
+
+LINEAR_CONFIG = {"dimension": 2, "lag_time": 5, "features_normalization": "mean_std",
+                 "num_subspaces": 4, "subspaces_dimension": 3}
+
+
+@pytest.mark.parametrize("cv,d", [("pca", 20), ("pca", 300), ("tica", 20),
+                                  ("tica", 300), ("htica", 20), ("htica", 300)])
+def test_linear_cvs_on_the_card_match_the_cpu(cuda, tmp_path, cv, d):
+    """PCA, TICA and HTICA trained on the card and by the port on the CPU
+    from the same matrix (PCA at 300 features takes the host subset eigh):
+    projections within 1e-4 after the sign fix, eigenvalues within 1e-4."""
+    from deep_cartograph_torch.cv import cv_calculators_map
+
+    x = _gapped_features(d=d)
+    runs = []
+    for device in ("cuda", "cpu"):
+        calc = cv_calculators_map[cv](dict(LINEAR_CONFIG), str(tmp_path / device),
+                                      device=device)
+        calc._set_training_data(x, None, [f"f{i}" for i in range(d)])
+        proj, labels = calc.run()
+        runs.append((calc, proj))
+    (card, got), (host, want) = runs
+    np.testing.assert_allclose(_align_signs(got, want), want, atol=1e-4)
+    if cv != "pca":
+        np.testing.assert_allclose(card.eigenvalues_, host.eigenvalues_, atol=1e-4)
+
+
+@pytest.mark.parametrize("cv", ["tica", "htica"])
+def test_streaming_on_the_card_matches_the_cpu(cuda, tmp_path, cv):
+    """Streaming TICA over 300 features (the on-card Krylov solver) and
+    streaming HTICA, from a colvars file, on the card and on the CPU."""
+    from deep_cartograph_torch.cv import cv_calculators_map
+    from deep_cartograph_torch.io.colvars import write_colvars
+
+    x = _gapped_features(d=300)
+    names = [f"f{i}" for i in range(x.shape[1])]
+    path = str(tmp_path / "colvars.dat")
+    write_colvars(path, np.column_stack([np.arange(len(x)), x]), ["time"] + names,
+                  fmt="%.9g")
+    runs = []
+    for device in ("cuda", "cpu"):
+        calc = cv_calculators_map[cv](dict(LINEAR_CONFIG, streaming=True),
+                                      str(tmp_path / device), device=device)
+        calc.load_training_data([path])
+        assert calc._streaming
+        runs.append((calc, calc.run()[0]))
+    (card, got), (host, want) = runs
+    np.testing.assert_allclose(_align_signs(got, want), want, atol=1e-4)
+    np.testing.assert_allclose(card.eigenvalues_, host.eigenvalues_, atol=1e-4)
+
+
+def _ca_system(folder, n_atoms=12, n_frames=400, seed=0):
+    """A CA chain (PDB) with a random-walk trajectory (DCD)."""
+    import os
+
+    from deep_cartograph_torch.io.dcd import write_dcd
+
+    rng = np.random.default_rng(seed)
+    base = np.stack([np.arange(n_atoms) * 3.8, np.zeros(n_atoms), np.zeros(n_atoms)], 1)
+    walk = np.cumsum(rng.normal(0, 0.05, (n_frames, n_atoms, 3)), 0)
+    coords = (base + walk + rng.normal(0, 0.1, walk.shape)).astype(np.float32)
+    pdb = os.path.join(folder, "ca.pdb")
+    with open(pdb, "w") as fh:
+        for i, (x, y, z) in enumerate(coords[0]):
+            fh.write(f"ATOM  {i + 1:>5}  CA  ALA A{i + 1:>4}    "
+                     f"{x:8.3f}{y:8.3f}{z:8.3f}{1.0:6.2f}{0.0:6.2f}           C\n")
+        fh.write("END\n")
+    dcd = os.path.join(folder, "traj.dcd")
+    write_dcd(dcd, coords)
+    return pdb, dcd, coords
+
+
+@pytest.mark.parametrize("cv", ["tica", "deep_tica"])
+def test_from_model_zip_on_the_card_matches_project_data(cuda, tmp_path, cv):
+    """A CV trained on the card from a colvars file, saved, and served from
+    the DCD by FramesToCV.from_model_zip (K1) on the card, against the
+    calculator's project_data of the featurized frames (1e-4)."""
+    from deep_cartograph_torch.cv import cv_calculators_map
+    from deep_cartograph_torch.deploy import FramesToCV
+    from deep_cartograph_torch.geom.engine import Featurizer
+    from deep_cartograph_torch.io.colvars import write_colvars
+    from deep_cartograph_torch.io.topology import Topology
+
+    pdb, dcd, coords = _ca_system(str(tmp_path))
+    labels = [f"dist-@CA_{i}-@CA_{j}" for i in range(1, 13) for j in range(i + 3, 13)]
+    features = Featurizer(Topology.from_pdb(pdb), labels, device="cpu")(coords)
+    path = str(tmp_path / "colvars.dat")
+    write_colvars(path, np.column_stack([np.arange(len(features)), features]),
+                  ["time"] + labels, fmt="%.9g")
+    config = dict(LINEAR_CONFIG, architecture={"encoder": {"layers": [16],
+                                                           "activation": ["tanh"]}},
+                  training={"general": {"num_tries": 2, "batch_size": 64,
+                                        "max_epochs": 3}})
+    calc = cv_calculators_map[cv](config, str(tmp_path / "out"))
+    calc.load_training_data([path], [pdb])
+    assert calc.run() is not None
+    model = str(tmp_path / "out" / cv / "model.zip")
+    before = torch_pd.STATS.launches
+    served = FramesToCV.from_model_zip(model, pdb, str(tmp_path / "serve"))(coords)
+    assert torch_pd.STATS.launches > before
+    np.testing.assert_allclose(served, calc.project_data(features), atol=1e-4)

@@ -271,10 +271,16 @@ def test_lag_pairs_stay_inside_each_trajectory():
     np.testing.assert_array_equal((calc.x_lag - calc.x_t).numpy(), 4.0)
 
 
-def test_batchnorm_and_colvars_are_not_ported_yet(ca_system):
+def test_batchnorm_and_colvars_are_not_ported_yet(ca_system, tmp_path):
+    """Batchnorm is still not ported; the colvars reader now is: the
+    calculator reads the file it is given (time column dropped)."""
+    x = np.random.default_rng(0).normal(size=(40, 3)).astype(np.float32)
+    path = _colvars(str(tmp_path / "colvars.dat"), x, ["a", "b", "c"])
     calc = DeepTICACalculator(configuration=_config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        calc.load_training_data(["colvars.dat"])
+    calc.load_training_data([path])
+    assert calc.features_ref_labels == ["a", "b", "c"]
+    np.testing.assert_array_equal(calc.training_data.numpy(), x)
+    assert calc.x_t.shape == (39, 3)
     cfg = _config()
     cfg["architecture"]["encoder"]["batchnorm"] = [True]
     calc = DeepTICACalculator(configuration=cfg, device="cpu")

@@ -1,5 +1,7 @@
-"""Rules of the PyTorch port: it never loads JAX or the JAX package, and it
-never falls back to the CPU when the caller did not ask for it."""
+"""Rules of the PyTorch port: it never loads JAX, the JAX package, nor the
+libraries the card machine lacks (pandas, pydantic, yaml, msgpack, flax,
+matplotlib), and it never falls back to the CPU when the caller did not ask
+for it."""
 
 import os
 import re
@@ -34,8 +36,9 @@ import deep_cartograph_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "deep_cartograph_tpu"))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "deep_cartograph_tpu", "pandas", "pydantic", "yaml",
+    "msgpack", "matplotlib"))
 print(len(names), loaded)
 """
 
@@ -55,6 +58,31 @@ def _package_files():
         for name in files:
             if name.endswith((".py", ".cu", ".cuh")):
                 yield os.path.join(root, name)
+
+
+FORBIDDEN_IMPORT = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|flax|deep_cartograph_tpu|pandas|pydantic|yaml|"
+    r"msgpack|matplotlib)\b"
+)
+
+
+def test_no_file_imports_a_forbidden_library():
+    offenders = []
+    for path in list(_package_files()) + [os.path.join(REPO_ROOT, "chip_smoke.py")]:
+        with open(path) as fh:
+            for lineno, line in enumerate(fh, 1):
+                if FORBIDDEN_IMPORT.search(line):
+                    offenders.append(f"{os.path.relpath(path, REPO_ROOT)}:{lineno}")
+    assert offenders == []
+
+
+def test_chip_smoke_imports_no_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; print(sorted(m for m in "
+         "sys.modules if m.split('.')[0] in ('jax', 'flax', 'deep_cartograph_tpu')))"],
+        cwd=REPO_ROOT, check=True, capture_output=True, text=True, timeout=120,
+    ).stdout.strip()
+    assert out == "[]"
 
 
 def test_no_file_names_the_jax_package():
@@ -110,6 +138,49 @@ def test_training_slice_entry_points_raise_without_cuda(no_cuda):
     # asking for the host is the one way to run there
     assert DeepTICACalculator({"dimension": 2}, device="cpu").device.type == "cpu"
     assert descriptors.standard_deviation(x, device="cpu").shape == (3,)
+
+
+def test_cv_surface_entry_points_raise_without_cuda(no_cuda, tmp_path, ca_system):
+    """The calculators of every family, CVCalculator.load,
+    FramesToCV.from_model_zip, the Filter, StreamingHTICA and the
+    TorchScript projector resolve device=None to CUDA."""
+    from deep_cartograph_torch.cv import cv_calculators_map
+    from deep_cartograph_torch.cv.base import CVCalculator
+    from deep_cartograph_torch.cv.htica_stream import StreamingHTICA
+    from deep_cartograph_torch.features.filter import Filter
+    from deep_cartograph_torch.io.colvars import write_colvars
+    from deep_cartograph_torch.models.torch_export import TorchScriptProjector
+
+    colvars = str(tmp_path / "c.dat")
+    x = np.random.default_rng(0).normal(2.0, 0.3, size=(30, 3)).astype(np.float32)
+    write_colvars(colvars, x, ["dist-@CA_1-@CA_5", "dist-@CA_2-@CA_9",
+                               "dist-@CA_3-@CA_11"])
+    for name in ("pca", "tica", "htica", "deep_tica"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cv_calculators_map[name]({"dimension": 2}, str(tmp_path))
+        calc = cv_calculators_map[name]({"dimension": 1, "num_subspaces": 1,
+                                         "subspaces_dimension": 1},
+                                        str(tmp_path / "out"), device="cpu")
+        assert calc.device.type == "cpu"
+    pca = cv_calculators_map["pca"]({"dimension": 1}, str(tmp_path / "out"), device="cpu")
+    pca.load_training_data([colvars], [ca_system.pdb_path])
+    pca.run()
+    model = str(tmp_path / "out" / "pca" / "model.zip")
+    for call in (
+        lambda: Filter({"std_quantile": 0.5}, [colvars], output_dir=str(tmp_path)),
+        lambda: StreamingHTICA(4, 2, 1, 1, 1),
+        lambda: TorchScriptProjector(str(tmp_path / "cv_weights.pt")),
+        lambda: CVCalculator.load(model, str(tmp_path / "load")),
+        lambda: FramesToCV.from_model_zip(model, ca_system.pdb_path, str(tmp_path / "s")),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    served = FramesToCV.from_model_zip(model, ca_system.pdb_path, str(tmp_path / "s"),
+                                       device="cpu")
+    assert served.device.type == "cpu"
+    for name in ("ae", "vae", "umap"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item"):
+            cv_calculators_map[name]({}, str(tmp_path))
 
 
 def test_kernel_wrapper_takes_its_plain_version_only_for_cpu_tensors():
