@@ -61,6 +61,10 @@ from deep_cartograph_torch.utils.device import DeviceLike
 
 logger = logging.getLogger(__name__)
 
+# Frames per vmap(jacrev) chunk in sensitivity_analysis: bounds the
+# (frames, n_cvs, features) Jacobian held on the device at once.
+_SENSITIVITY_CHUNK_FRAMES = 4096
+
 
 def closest_power_of_two(n: int) -> int:
     """Largest power of two strictly below n (cf. reference common.py:645-666)."""
@@ -622,10 +626,10 @@ class DeepTICACalculator(NonLinear):
             out = out @ self._evecs()
         return out.cpu().numpy()
 
-    def sensitivity_analysis(self, chunk_frames: int = 4096) -> None:
+    def sensitivity_analysis(self) -> None:
         """Mean |d cv_k / d x_j| over the training set and the CV
         components (before post-normalization), by `vmap(jacrev)` over
-        chunks of frames on the device."""
+        chunks of _SENSITIVITY_CHUNK_FRAMES frames on the device."""
         from torch.func import jacrev, vmap
 
         evecs = self._evecs()
@@ -637,8 +641,9 @@ class DeepTICACalculator(NonLinear):
         jac_of = vmap(jacrev(forward))
         total = torch.zeros(self.num_features, dtype=torch.float64, device=self.device)
         data = self.training_data
-        for s in range(0, data.shape[0], chunk_frames):
-            jac = jac_of(data[s : s + chunk_frames])        # (n, n_cvs, features)
+        step = _SENSITIVITY_CHUNK_FRAMES
+        for s in range(0, data.shape[0], step):
+            jac = jac_of(data[s : s + step])                # (n, n_cvs, features)
             total += jac.abs().sum((0, 1)).double()
         sens = (total / (data.shape[0] * self.cv_dimension)).float().cpu().numpy()
         self._save_sensitivity(self.features_ref_labels, sens,

@@ -14,7 +14,12 @@ iterator of frames:
 The estimator is cv/tica_math.timelagged_covariances' (mean and C0 from
 x_t only, Ctau symmetrized), so results agree with the in-memory HTICA on
 data that fits. Blocks may be host arrays or device tensors; the moments
-accumulate on the device.
+accumulate on the device, in float64 (the JAX package's are float32), and
+the covariances are rounded to float32 for the solvers. On an H100, float32
+batched products over a 20,000-frame block came out 2.4e-6 relative off
+float64, and level-1 subspaces whose last kept eigenvalue nearly ties the
+next one turned that into a 2e-2 change of the HTICA projection
+(chip_smoke.py, phase 4).
 
 Eigensolves: subspaces of at most 256 dimensions go through the batched
 Cholesky-whitened `eigh` on the device. Larger ones take the top pairs
@@ -48,7 +53,7 @@ SOLVERS = ("auto", "device", "host")
 
 def _zero_state(n_sub: int, sub_d: int, device) -> dict:
     def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+        return torch.zeros(shape, dtype=torch.float64, device=device)
 
     return {"n": 0, "s1": zeros(n_sub, sub_d), "s1l": zeros(n_sub, sub_d),
             "s0": zeros(n_sub, sub_d, sub_d), "st": zeros(n_sub, sub_d, sub_d)}
@@ -57,7 +62,8 @@ def _zero_state(n_sub: int, sub_d: int, device) -> dict:
 def _accumulate_moments(state: dict, x_t: torch.Tensor, x_lag: torch.Tensor,
                         n_sub: int, sub_d: int, shift=None) -> dict:
     """Add one block of time-lagged pairs (b, n_sub * sub_d) to the
-    per-subspace raw moments, after subtracting `shift`."""
+    per-subspace raw moments, in float64, after subtracting `shift`."""
+    x_t, x_lag = x_t.double(), x_lag.double()
     if shift is not None:
         x_t = x_t - shift
         x_lag = x_lag - shift
@@ -76,13 +82,14 @@ def _accumulate_moments(state: dict, x_t: torch.Tensor, x_lag: torch.Tensor,
 def _moments_to_covs(state: dict):
     """Per-subspace (C0, Ctau, mean) from the raw moments: with mu the
     mean of x_t and mul that of x_lag, C0 = S0/n - mu mu^T and
-    Ctau = St/n - (mu mul^T + mul mu^T)/2."""
+    Ctau = St/n - (mu mul^T + mul mu^T)/2; computed in float64, returned
+    in float32."""
     n = max(state["n"], 1)
     mu = state["s1"] / n
     mul = state["s1l"] / n
     c0 = state["s0"] / n - mu[:, :, None] * mu[:, None, :]
     cross = 0.5 * (mu[:, :, None] * mul[:, None, :] + mul[:, :, None] * mu[:, None, :])
-    return c0, state["st"] / n - cross, mu
+    return c0.float(), (state["st"] / n - cross).float(), mu.float()
 
 
 def _batched_tica(c0: torch.Tensor, ctau: torch.Tensor, reg: float, dim: int):
@@ -309,16 +316,15 @@ class StreamingHTICA:
 
     def _pass(self, make_block_iter, n_sub: int, sub_d: int, project=None) -> dict:
         """One pass of moments. Every pair is shifted by the first pair
-        block's mean: raw float32 second moments cancel badly when feature
-        means dominate their variance, and covariances do not see a
-        shift."""
+        block's mean: raw second moments cancel when feature means
+        dominate their variance, and covariances do not see a shift."""
         shift = None
         state = _zero_state(n_sub, sub_d, self.device)
         for x_t, x_lag in self._stream_pairs(make_block_iter()):
             if project is not None:
                 x_t, x_lag = project(x_t), project(x_lag)
             if shift is None:
-                shift = x_t.mean(0)
+                shift = x_t.double().mean(0)
             _accumulate_moments(state, x_t, x_lag, n_sub, sub_d, shift=shift)
         return state
 

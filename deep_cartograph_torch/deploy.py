@@ -110,12 +110,17 @@ class FramesToCV:
     ) -> "FramesToCV":
         """Serve a model.zip (written by the port or by the JAX package) on
         `topology_path`: the model's features are translated from its
-        reference topology onto this one. `device`: None means CUDA."""
+        reference topology onto this one. `device`: None means CUDA.
+        Without `output_path` the model is unpacked into a temporary
+        directory that is removed once the pipeline is built."""
+        if output_path is None:
+            with tempfile.TemporaryDirectory() as tmp:
+                return cls.from_model_zip(model_path, topology_path, tmp, device)
+
         from deep_cartograph_torch.cv.base import CVCalculator
         from deep_cartograph_torch.features.translator import Translator
 
-        calculator = CVCalculator.load(model_path, output_path or tempfile.mkdtemp(),
-                                       device=device)
+        calculator = CVCalculator.load(model_path, output_path, device=device)
         if calculator.ref_topology_path is None:
             raise ValueError(f"{model_path} holds no reference topology to translate "
                              "its features from.")

@@ -114,6 +114,73 @@ def test_streaming_matches_in_memory(golden, tmp_path, monkeypatch, cv):
     np.testing.assert_allclose(_align_signs(got, jwant), jwant, atol=PROJECTION_TOL)
 
 
+@pytest.mark.parametrize("cv", ("tica", "htica"))
+def test_streaming_matches_in_memory_at_smoke_width(tmp_path, monkeypatch, cv):
+    """At the smoke's streaming width, 580 features (HTICA: 10 subspaces of
+    58, 5 kept each), streamed in blocks of 512 rows against the in-memory
+    calculator. Five slow processes mixed into every feature over unit
+    noise give each subspace a clear gap after its 5th eigenvalue, so the
+    float32 result is well determined: projections within 1e-4 after the
+    sign fix, eigenvalues within 1e-5."""
+    rng = np.random.default_rng(5)
+    n, f = 3000, 580
+    slow = np.zeros((n, 5))
+    for t in range(1, n):
+        slow[t] = np.array([0.995, 0.99, 0.98, 0.95, 0.9]) * slow[t - 1] \
+            + rng.normal(size=5)
+    slow /= slow.std(0)
+    x = (slow @ rng.normal(size=(5, f)) + rng.normal(size=(n, f))
+         + rng.uniform(1, 3, f)).astype(np.float32)
+    names = [f"f{i}" for i in range(f)]
+    path = str(tmp_path / "colvars.dat")
+    col.write_colvars(path, np.column_stack([np.arange(n), x]), ["time"] + names,
+                      fmt="%.9g")
+    col.clear_memory_cache()
+    monkeypatch.setenv("DEEP_CARTO_STREAM_CHUNK_ROWS", "512")
+    config = dict(base_config(), lag_time=10, num_subspaces=10, subspaces_dimension=5)
+    runs = {}
+    for streaming in (False, True):
+        calc = cv_calculators_map[cv](configuration=dict(config, streaming=streaming),
+                                      output_path=str(tmp_path / str(streaming)),
+                                      device="cpu")
+        calc.load_training_data([path], features_list=names)
+        assert calc._streaming == streaming
+        runs[streaming] = (calc.run()[0], calc.eigenvalues_)
+    (want, ev_want), (got, ev_got) = runs[False], runs[True]
+    np.testing.assert_allclose(ev_got, ev_want, atol=1e-5)
+    np.testing.assert_allclose(_align_signs(got, want), want, atol=PROJECTION_TOL)
+
+
+def test_streamed_covariances_match_float64():
+    """The streamed moments of drifting data (the feature means move away
+    from the first block's shift), summed over 2,000 blocks in two
+    segments, against float64 two-pass covariances of the same pairs:
+    within 1e-6 relative, float32's rounding of the result plus a margin."""
+    from deep_cartograph_torch.cv.tica_math import timelagged_covariances
+
+    rng = np.random.default_rng(11)
+    n, d, lag, rows = 32_000, 8, 4, 16
+    drift = np.linspace(0, 10, n)[:, None] * rng.uniform(0.5, 1.0, d)
+    x = (drift + rng.normal(size=(n, d)) + 10).astype(np.float32)
+
+    def blocks():
+        for s in range(0, n, rows):
+            if s == n // 2:
+                yield None
+            yield x[s:s + rows]
+
+    sh = htica_stream.StreamingHTICA(d, 2, 3, 2, lag_time=lag, device="cpu")
+    c0, ctau, _ = htica_stream._moments_to_covs(sh._pass(blocks, 2, d // 2))
+    x64 = torch.as_tensor(x, dtype=torch.float64)
+    pairs = [(seg[:-lag], seg[lag:]) for seg in (x64[: n // 2], x64[n // 2:])]
+    x_t = torch.cat([p[0] for p in pairs]).reshape(-1, 2, d // 2).transpose(0, 1)
+    x_lag = torch.cat([p[1] for p in pairs]).reshape(-1, 2, d // 2).transpose(0, 1)
+    c0_w, ctau_w, _ = timelagged_covariances(x_t, x_lag)
+    for got, want in ((c0, c0_w), (ctau, ctau_w)):
+        rel = (got.double() - want).flatten(1).norm(dim=1) / want.flatten(1).norm(dim=1)
+        assert float(rel.max()) <= 1e-6
+
+
 def _covariances(d, n_sub=2, slow=(0.99, 0.97, 0.9), seed=0):
     """(S, d, d) C0 and Ctau whose generalized spectrum has a few slow modes
     over a bulk below 0.5."""

@@ -8,6 +8,7 @@ weight between two linear runs)."""
 
 import copy
 import os
+import tempfile
 import zipfile
 
 import flax.serialization
@@ -178,6 +179,25 @@ def test_from_model_zip_matches_jax(trained, tmp_path, cv, shifted):
             coords)
         np.testing.assert_allclose(got, want, atol=ZIP_TOL)
         assert got.shape == (coords.shape[0], 2)
+
+
+@pytest.mark.parametrize("cv", ["tica", "deep_tica"])
+def test_from_model_zip_without_output_path_leaves_no_files(trained, tmp_path,
+                                                            monkeypatch, cv):
+    """Without output_path the zip is unpacked into a temporary directory
+    that is gone once the pipeline is built; the pipeline serves as one
+    built from a kept folder."""
+    system, _, runs, _ = trained
+    zip_path = runs[cv]["port"][1]
+    temp_root = tmp_path / "tmp"
+    temp_root.mkdir()
+    monkeypatch.setattr(tempfile, "tempdir", str(temp_root))
+    coords = read_dcd(system.dcd_path)
+    got = FramesToCV.from_model_zip(zip_path, system.pdb_path, device="cpu")(coords)
+    assert list(temp_root.iterdir()) == []
+    want = FramesToCV.from_model_zip(zip_path, system.pdb_path, str(tmp_path / "kept"),
+                                     device="cpu")(coords)
+    np.testing.assert_array_equal(got, want)
 
 
 def _read_sensitivity(folder):
