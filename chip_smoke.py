@@ -46,12 +46,28 @@ Phases, each failing the run (non-zero exit) if it fails:
    path's training cut to 2 epochs, through the calculator, once under
    torch's sync debug mode (host syncs by line of code) and once under
    torch.profiler (per step: host time, card time, sync calls).
+6. The autoencoders and the PLUMED files on the main path's data, the
+   kernels' counters zeroed before and read after (`autoencoders`): an AE
+   and a VAE (the schema's default encoder (586, 64, 32, 16, 2),
+   leaky_relu, the mirrored decoder; the main path's 10 tries, batch 4,096,
+   10 epochs, Adam 1e-3; the VAE through its default sigmoid KL annealing
+   to the post-annealing checkpoint) trained as one batched program each,
+   then 2 epochs of each again under sync debug mode and torch.profiler;
+   an AE with batchnorm after every hidden layer (2 epochs), its fold
+   against the unfolded net on the whole training set; the three saved as
+   model.zip, loaded back and served by FramesToCV.from_model_zip from the
+   DCD (K1); write_plumed_files for PCA, TICA, HTICA (phase 4), deep-TICA
+   (phase 3), AE and VAE with the default opes_metad bias, and once with
+   the RMSD restraint on the first and last frames as waypoints: each
+   TorchScript `*_weights.pt` run on the card, each linear input's COMBINE
+   chain evaluated on the feature matrix, both against the projection; the
+   AE on the card against the CPU on 5,000 frames for 2 epochs.
 
 Prints the nvidia-smi line, the [smoke] lines (times beside the card's name
 and power limit), then one JSON line {"kernels": [...]} (each kernel's
-launches summed over the main path and phase 4, and by path), then, as the
-last line, {"ok": true, "device": {...}}. The total time is the last
-[smoke] line.
+launches summed over the main path and phases 4 and 6, and by path), then,
+as the last line, {"ok": true, "device": {...}}. The total time is the last
+[smoke] line. The phases run one after another in this process.
 Imports nothing of JAX.
 """
 
@@ -122,9 +138,13 @@ K3_TOL = 1e-5                   # Angstrom, absolute (+1e-6 relative)
 PROJECTION_TOL = 1e-4           # the repo's projection contract
 # Card against CPU training: the same batches and initial parameters, float32
 # sums in other orders compounded over the steps (the card test holds a toy
-# run to the same).
+# run to the same). The projections are held to the contract or to the
+# training's own float32 floor, whichever is larger (`card_against_cpu`):
+# Adam's first steps move each weight by about the learning rate in the
+# direction of its gradient's sign, so weights whose gradient is near zero
+# take that step either way on a last-bit difference: the AE's floor at 586
+# features is far above 1e-4 (`ae_card_cpu_ulp_noise_spread`).
 CARD_CPU_LOSS_RTOL = 1e-4
-CARD_CPU_PROJECTION_TOL = 1e-4
 # TICA and HTICA at 586 features: C0 of the normalized features has a
 # condition number near 2e7 (`*_c0_condition`), and HTICA's level-1
 # subspaces keep 5 eigenvectors where the 5th eigenvalue nearly ties the
@@ -144,6 +164,21 @@ ULP_SPREAD_MULTIPLE = 3
 # the float64 one (~6e-8 relative), held here with a margin.
 STREAMED_C0_RTOL = 1e-6
 ZIP_TOL = 1e-5            # a model.zip projects as the calculator it came from
+
+# Phase 6: the autoencoders, with the schema's default encoder
+# (config/schemas.py NEURAL_NETWORK) and no decoder block, so that the
+# decoder mirrors it; the main path's training settings.
+AUTOENCODER_CONFIG = {
+    "dimension": 2,
+    "features_normalization": "mean_std",
+    "architecture": {"encoder": {"layers": [64, 32, 16],
+                                 "activation": ["leaky_relu"] * 3}},
+    "training": TRAIN_CONFIG["training"],
+}
+BN_EPOCHS = 2             # the batchnorm AE: the fold, not the training, is checked
+BN_FOLD_TOL = 1e-5        # folded net against the batchnorm net on all training rows
+TORCHSCRIPT_TOL = 1e-5    # a PLUMED *_weights.pt against the calculator's projection
+COMBINE_TOL = 1e-4        # a linear PLUMED input's COMBINE chain against the projection
 
 
 def log(msg: str) -> None:
@@ -638,37 +673,44 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpy")
 
 
-def training_breakdown(calc_main) -> dict:
-    """The main path's training (same data, config and seeds) cut to
-    BREAKDOWN_EPOCHS epochs, run twice through `DeepTICACalculator.train`:
+def calculator(cv: str, config: dict, data, labels, device="cuda", **general):
+    """A `cv` calculator of `config` (its training's general block updated by
+    `general`) with `data` (one trajectory) as its training data."""
+    import copy
+
+    from deep_cartograph_torch.cv import cv_calculators_map
+
+    config = copy.deepcopy(config)
+    config["training"]["general"].update(general)
+    calc = cv_calculators_map[cv](config, device=device)
+    calc._set_training_data(data, None, labels)
+    return calc
+
+
+def training_breakdown(cv: str, config: dict, calc_main) -> dict:
+    """A training on the main path's data (same config and seeds) cut to
+    BREAKDOWN_EPOCHS epochs, run twice through the calculator's `train`:
     once under torch's sync debug mode (host syncs by line of code), once
     under torch.profiler (the trainer's step spans: their host time, the
     card time of the kernels they launch, and the sync calls inside them)."""
-    import copy
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from deep_cartograph_torch.cv.deep import DeepTICACalculator
     from deep_cartograph_torch.models.training import STEP_SPAN
 
-    config = copy.deepcopy(TRAIN_CONFIG)
-    config["training"]["general"]["max_epochs"] = BREAKDOWN_EPOCHS
+    def make():
+        return calculator(cv, config, calc_main.training_data,
+                          calc_main.features_ref_labels, max_epochs=BREAKDOWN_EPOCHS)
 
-    def calculator():
-        calc = DeepTICACalculator(config)
-        calc._set_training_data(calc_main.training_data, np.zeros(N_FRAMES, np.int64),
-                                calc_main.features_ref_labels)
-        return calc
-
-    calc = calculator()
+    calc = make()
     sites = count_syncs(calc.train)
-    steps = int(np.ceil(calc.x_t.shape[0] * config["training"]["general"]["lengths"][0]
+    n_total = len(next(iter(calc.train_datasets().values())))
+    steps = int(np.ceil(int(n_total * calc.training_validation_lengths[0])
                         / calc.batch_size))
     out = {"epochs": BREAKDOWN_EPOCHS, "steps_per_epoch": steps,
            "host_syncs_train": sum(sites.values()), "host_sync_sites": dict(sites)}
 
-    calc = calculator()
+    calc = make()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = synced(calc.train)
     events = prof.events()
@@ -702,23 +744,21 @@ def training_breakdown(calc_main) -> dict:
     return out
 
 
-def card_against_cpu(calc_main) -> dict:
-    """Phase 5: the same cut-down training on the card and on the CPU."""
-    import copy
-
-    from deep_cartograph_torch.cv.deep import DeepTICACalculator
-
-    config = copy.deepcopy(TRAIN_CONFIG)
-    config["training"]["general"].update(
-        {"num_tries": CUT_TRIES, "max_epochs": CUT_EPOCHS})
-    x = calc_main.training_data[:CUT_FRAMES]
+def card_against_cpu(cv: str, config: dict, calc_main, frames: int) -> dict:
+    """The same cut-down training (the main path's first `frames` frames,
+    CUT_TRIES tries, CUT_EPOCHS epochs) on the card and on the CPU, and on
+    the card again from the frames with one ulp of noise: the spread that
+    gives is the training's float32 floor, which the projections are held
+    to (`conditioning_tol`)."""
+    x = calc_main.training_data[:frames]
     runs = {}
-    for device in ("cuda", "cpu"):
-        calc = DeepTICACalculator(config, device=device)
-        calc._set_training_data(x, None, calc_main.features_ref_labels)
+    for name, device, data in (("cuda", "cuda", x), ("cpu", "cpu", x),
+                               ("noisy", "cuda", with_ulp_noise(x))):
+        calc = calculator(cv, config, data, calc_main.features_ref_labels, device,
+                          num_tries=CUT_TRIES, max_epochs=CUT_EPOCHS)
         (trained, _), seconds = synced(lambda: (calc.train(), calc.normalize_cv()))
-        check(trained, f"cut-down training on {device}")
-        runs[device] = (calc, seconds)
+        check(trained, f"cut-down training on {name}")
+        runs[name] = (calc, seconds)
     card, host = runs["cuda"][0], runs["cpu"][0]
     result = {"card_s": runs["cuda"][1], "cpu_s": runs["cpu"][1]}
     rel = 0.0
@@ -728,11 +768,15 @@ def card_against_cpu(calc_main) -> dict:
             rel = max(rel, float(np.max(np.abs(ga - gb) / np.abs(gb))))
     result["loss_max_rel_diff"] = rel
     check(rel <= CARD_CPU_LOSS_RTOL,
-          f"per-epoch losses on the card match the CPU (max rel diff {rel})")
-    proj = np.abs(card.project_data(x) - host.project_data(x)).max()
-    result["projection_max_abs_diff"] = float(proj)
-    check(proj <= CARD_CPU_PROJECTION_TOL,
-          f"projection on the card matches the CPU (max diff {proj})")
+          f"{cv} per-epoch losses on the card match the CPU (max rel diff {rel})")
+    on_card = card.project_data(x)
+    proj = float(np.abs(on_card - host.project_data(x)).max())
+    result["projection_max_abs_diff"] = proj
+    result["ulp_noise_spread"] = float(np.abs(runs["noisy"][0].project_data(x)
+                                              - on_card).max())
+    tol = conditioning_tol(result["ulp_noise_spread"])
+    check(proj <= tol, f"{cv} projection on the card matches the CPU (max diff {proj}, "
+                       f"tolerance {tol:.3g})")
     return result
 
 
@@ -1060,6 +1104,261 @@ def cv_surface(calc_deep, ctx: dict, tmp: str, stats, card: str, device="cuda") 
     del file_kept, read_back
     torch.cuda.empty_cache()
     log(json.dumps(out))
+    return out, linear
+
+
+def check_autoencoder_training(calc, cv: str, out: dict) -> None:
+    """Finite losses in every try; the selected try's reconstruction fell;
+    the VAE annealed its KL weight and kept its post-annealing best; the
+    projection of the training data finite in [-1, 1]."""
+    for try_num, r in calc.try_results:
+        for key in ("train_loss", "valid_loss"):
+            check(bool(np.isfinite(r.metrics[key]).all()),
+                  f"{cv} try {try_num} {key} finite")
+    recon = calc.metrics["valid_loss" if cv == "ae" else "valid_reconstruction_loss"]
+    check(recon[-1] < recon[0], f"{cv} selected try's reconstruction fell "
+                                f"({recon[0]} -> {recon[-1]})")
+    if cv == "vae":
+        beta = calc.metrics["beta"]
+        check(beta[0] == 1e-6 and beta[-1] > 9e-3, f"vae KL annealing ({beta})")
+        check(all(r.description == "best post-annealing" for _, r in calc.try_results),
+              "every vae try kept its post-annealing best")
+    proj = calc.project_data(calc.training_data)
+    check(bool(np.isfinite(proj).all()) and float(np.abs(proj).max()) <= 1 + 1e-5,
+          f"{cv} projection finite in [-1, 1]")
+    out[f"{cv}_tries"] = [{"try": n, "score": r.score, "best_epoch": r.best_epoch,
+                           "description": r.description} for n, r in calc.try_results]
+    out[f"{cv}_selected_score"] = calc.cv_score
+    out[f"{cv}_epoch_s"] = calc.epoch_seconds
+
+
+def check_batchnorm_fold(calc, out: dict) -> None:
+    """The batchnorm AE: the fold run again on the card (timed) gives the
+    same parameters; the folded net projects the training set as the
+    batchnorm net normalized with the statistics of every training row."""
+    import torch
+
+    from deep_cartograph_torch.models.networks import stack_from_architecture
+
+    folded, arch = calc.params, calc.architecture
+    best = next(r for _, r in calc.try_results if r.score == calc.cv_score)
+    unfolded = calc.build_architecture_dict()
+    check(all(unfolded["encoder_options"]["batchnorm"][:3])
+          and not any(arch["encoder_options"]["batchnorm"]),
+          "the batchnorm flags are cleared by the fold")
+    calc.architecture, calc.params = unfolded, best.params
+    _, out["bn_fold_s"] = synced(calc._fold_batchnorm_for_eval)
+    check(all(torch.equal(calc.params[k], folded[k]) for k in folded)
+          and set(calc.params) == set(folded), "the fold is deterministic")
+    calc.architecture, calc.params = arch, folded
+    stack = stack_from_architecture(calc.build_architecture_dict()).to(calc.device)
+    with torch.no_grad():
+        latent = stack({k: v[None] for k, v in best.params.items()},
+                       calc.training_data[None])[0].cpu().numpy()
+    want = (latent - calc.post_mean) / calc.post_range
+    out["bn_fold_err"] = float(np.abs(calc.project_data(calc.training_data) - want).max())
+    check(out["bn_fold_err"] <= BN_FOLD_TOL,
+          f"the folded AE projects as the batchnorm net ({out['bn_fold_err']})")
+
+
+def evaluate_combine_chain(text: str, columns: dict) -> dict:
+    """The COMBINE actions of a PLUMED input, in order, on `columns` (label
+    -> values): each is sum_i c_i (arg_i - p_i), as PLUMED computes it."""
+    values = dict(columns)
+    for line in text.splitlines():
+        label, sep, rest = line.partition(": COMBINE ")
+        if not sep:
+            continue
+        kv = dict(item.split("=", 1) for item in rest.split())
+        args = kv["ARG"].split(",")
+        coeffs = [float(c) for c in kv.get("COEFFICIENTS", ",".join(["1"] * len(args))).split(",")]
+        params = [float(p) for p in kv.get("PARAMETERS", ",".join(["0"] * len(args))).split(",")]
+        values[label] = sum(c * (values[a] - p) for a, c, p in zip(args, coeffs, params))
+    return values
+
+
+def check_plumed_files(name: str, calc, folder: str, ctx: dict, out: dict) -> None:
+    """The unbiased and biased PLUMED zips of `calc`: a non-linear CV's
+    TorchScript weights run on the card, a linear CV's COMBINE chain
+    evaluated on the feature matrix (float64), each against the
+    calculator's projection of the main path's kept features."""
+    import zipfile
+
+    import torch
+
+    cv = calc.cv_name
+    kept_features, kept = ctx["kept_features"], ctx["kept"]
+    zips = sorted(f for f in os.listdir(folder) if f.endswith(".zip"))
+    check(zips == [f"plumed_{cv}_biased.zip", f"plumed_{cv}_unbiased.zip"],
+          f"{name} PLUMED zips ({zips})")
+    with zipfile.ZipFile(os.path.join(folder, zips[1])) as zf:
+        members = zf.namelist()
+        text = zf.read(f"plumed_input_{cv}.dat").decode()
+        weights = zf.read(f"{cv}_weights.pt") if f"{cv}_weights.pt" in members else None
+    want = calc.project_data(kept_features)
+    if calc.get_cv_type() == "non-linear":
+        path = os.path.join(folder, f"{cv}_weights.pt")
+        with open(path, "wb") as fh:
+            fh.write(weights)
+        module = torch.jit.load(path, map_location=calc.device)
+        with torch.no_grad():
+            got = module(kept_features).cpu().numpy()
+        key, tol = f"{name}_plumed_torchscript_err", TORCHSCRIPT_TOL
+    else:
+        columns = {lab: kept_features[:, i].double() for i, lab in enumerate(kept)}
+        values = evaluate_combine_chain(text, columns)
+        got = torch.stack([values[f"norm_{cv}_{i}"] for i in range(2)], 1).cpu().numpy()
+        key, tol = f"{name}_plumed_combine_err", COMBINE_TOL
+    out[key] = float(np.abs(got - want).max())
+    check(got.shape == want.shape and out[key] <= tol,
+          f"{name} PLUMED input computes the projection ({key} {out[key]})")
+
+
+def autoencoders(calc_deep, linear: dict, ctx: dict, tmp: str, stats, card: str,
+                 device="cuda") -> dict:
+    """Phase 6 (the kernels' counts zeroed before and read after):
+
+    1. an AE and a VAE trained at the main path's width and settings, all
+       tries as one batched program (total, per epoch, tries);
+    2. an AE with batchnorm after every hidden layer, BN_EPOCHS epochs: its
+       fold, run again on the card, against the unfolded net;
+    3. the three saved as model.zip, loaded back, and served from the DCD by
+       FramesToCV.from_model_zip (K1), against project_data;
+    4. write_plumed_files for the six families with the default bias, and
+       for the AE with the RMSD restraint on two waypoints (the first and
+       last frames);
+    5. the AE on the card against the CPU on CARD_CPU_FRAMES frames.
+    """
+    import copy
+    import zipfile
+
+    import torch
+
+    from deep_cartograph_torch.config.schemas import train_colvars_config
+    from deep_cartograph_torch.cv import cv_calculators_map
+    from deep_cartograph_torch.cv.base import CVCalculator
+    from deep_cartograph_torch.deploy import FramesToCV
+
+    kept_features, kept = ctx["kept_features"], ctx["kept"]
+    n_frames = kept_features.shape[0]
+    bias = train_colvars_config()["common"]["bias"]
+    out: dict = {}
+    for st in stats:
+        st.launches = 0
+
+    # 1. AE and VAE at full width.
+    bn_config = copy.deepcopy(AUTOENCODER_CONFIG)
+    bn_config["architecture"]["encoder"]["batchnorm"] = [True] * 3
+    bn_config["training"]["general"]["max_epochs"] = BN_EPOCHS
+    calcs = {}
+    for name, cv, config in (("ae", "ae", AUTOENCODER_CONFIG),
+                             ("vae", "vae", AUTOENCODER_CONFIG),
+                             ("bn_ae", "ae", bn_config)):
+        calc = cv_calculators_map[cv](config, os.path.join(tmp, name), device=device)
+        _, out[f"{name}_set_data_s"] = synced(lambda: calc._set_training_data(
+            kept_features, np.zeros(n_frames, np.int64), kept))
+        trained, out[f"{name}_train_s"] = synced(calc.train)
+        check(trained, f"{name} training produced a valid model")
+        _, out[f"{name}_normalize_cv_s"] = synced(calc.normalize_cv)
+        if name != "bn_ae":
+            check_autoencoder_training(calc, cv, out)
+        calcs[name] = calc
+        log(f"[{card}] {name} at {n_frames} x {len(kept)}: train "
+            f"{out[f'{name}_train_s']:.3f} s for {calc.num_tries} tries x "
+            f"{len(calc.epoch_seconds)} epochs (per epoch "
+            f"{', '.join(f'{e:.3f}' for e in calc.epoch_seconds)} s), "
+            f"post-normalization {out[f'{name}_normalize_cv_s']:.3f} s")
+
+    # 2. The batchnorm fold.
+    check_batchnorm_fold(calcs["bn_ae"], out)
+    log(f"[{card}] batchnorm AE fold {out['bn_fold_s'] * 1e3:.1f} ms, folded against "
+        f"the batchnorm net on all {n_frames} rows {out['bn_fold_err']:.3g}")
+
+    # 3. model.zip: save, load, serve from the DCD (K1).
+    for name, calc in calcs.items():
+        calc.ref_topology_path = ctx["pdb_path"]
+        calc.create_output_folders()
+        _, out[f"{name}_save_s"] = synced(calc.save_model)
+        path = os.path.join(str(calc.output_path), "model.zip")
+        loaded, out[f"{name}_load_s"] = synced(lambda: CVCalculator.load(
+            path, os.path.join(tmp, "load", name), device=device))
+        want = calc.project_data(kept_features)
+        out[f"{name}_loaded_err"] = float(np.abs(loaded.project_data(kept_features)
+                                                 - want).max())
+        pipeline, out[f"{name}_from_model_zip_s"] = synced(lambda: FramesToCV.from_model_zip(
+            path, ctx["pdb_path"], os.path.join(tmp, "serve", name), device=device))
+        served, out[f"{name}_serve_s"] = synced(lambda: pipeline(ctx["frames"]))
+        out[f"{name}_serve_err"] = float(np.abs(served - want).max())
+        log(f"[{card}] {name} model.zip: save {out[f'{name}_save_s'] * 1e3:.1f} ms, load "
+            f"{out[f'{name}_load_s'] * 1e3:.1f} ms (err {out[f'{name}_loaded_err']:.3g}); "
+            f"from_model_zip {out[f'{name}_from_model_zip_s'] * 1e3:.1f} ms, serve "
+            f"{n_frames} frames {out[f'{name}_serve_s'] * 1e3:.1f} ms (err "
+            f"{out[f'{name}_serve_err']:.3g})")
+        check(out[f"{name}_loaded_err"] <= ZIP_TOL, f"{name} loaded zip projects alike")
+        check(served.shape == (n_frames, 2) and out[f"{name}_serve_err"] <= ZIP_TOL,
+              f"{name} served from model.zip matches project_data")
+    out["launches"] = {st.name: st.launches for st in stats}
+    check(out["launches"]["pair_distances_kernel"] >= len(calcs),
+          "K1 was launched serving every new model.zip")
+
+    # 4. The PLUMED files of the six families, then the RMSD restraint.
+    families = {"pca": linear["pca"], "tica": linear["tica"], "htica": linear["htica"],
+                "deep_tica": calc_deep, "ae": calcs["ae"], "vae": calcs["vae"]}
+    for name, calc in families.items():
+        calc.bias = copy.deepcopy(bias)
+        folder = os.path.join(tmp, "plumed", name)
+        os.makedirs(folder)
+        _, out[f"{name}_plumed_s"] = synced(lambda: calc.write_plumed_files(
+            ctx["pdb_path"], folder, device=device))
+        check_plumed_files(name, calc, folder, ctx, out)
+    waypoints = []
+    for k, frame in enumerate((ctx["frames"][0], ctx["frames"][-1])):
+        waypoints.append(os.path.join(tmp, f"waypoint_{k}.pdb"))
+        write_ca_pdb(waypoints[-1], frame)
+    calc = calcs["ae"]
+    calc.bias = dict(copy.deepcopy(bias), add_rmsd_restraint=True)
+    folder = os.path.join(tmp, "plumed", "ae_rmsd")
+    os.makedirs(folder)
+    _, out["ae_rmsd_plumed_s"] = synced(lambda: calc.write_plumed_files(
+        ctx["pdb_path"], folder, waypoints, device=device))
+    with zipfile.ZipFile(os.path.join(folder, "plumed_ae_biased.zip")) as zf:
+        text = zf.read("plumed_input_ae_opes_metad.dat").decode()
+        reference = zf.read("rmsd_restraint_reference.pdb").decode()
+    marked = sum(float(line[54:60]) > 0 for line in reference.splitlines()
+                 if line.startswith("ATOM"))
+    out["rmsd_reference_atoms"] = marked
+    check("rmsd_restraint: RMSD REFERENCE=rmsd_restraint_reference.pdb" in text
+          and "UPPER_WALLS ARG=rmsd_restraint" in text and 0 < marked <= N_ATOMS,
+          f"the AE's biased input carries the RMSD restraint ({marked} atoms)")
+    log(f"[{card}] write_plumed_files (unbiased + opes_metad): "
+        + ", ".join(f"{name} {out[f'{name}_plumed_s'] * 1e3:.1f} ms" for name in families)
+        + f"; AE with the RMSD restraint {out['ae_rmsd_plumed_s'] * 1e3:.1f} ms "
+        f"({marked} reference atoms); TorchScript against the projection "
+        + ", ".join(f"{name} {out[f'{name}_plumed_torchscript_err']:.3g}"
+                    for name in ("deep_tica", "ae", "vae"))
+        + "; COMBINE chains "
+        + ", ".join(f"{name} {out[f'{name}_plumed_combine_err']:.3g}"
+                    for name in ("pca", "tica", "htica")))
+
+    # 5. Training in detail, and the card against the CPU.
+    for cv in ("ae", "vae"):
+        breakdown = training_breakdown(cv, AUTOENCODER_CONFIG, calcs[cv])
+        out.update({f"{cv}_{k}": v for k, v in breakdown.items()})
+        log(f"[{card}] {cv} training, {breakdown['epochs']} epochs of "
+            f"{breakdown['steps_per_epoch']} steps: host syncs "
+            f"{breakdown['host_syncs_train']} in all; under torch.profiler "
+            f"{breakdown['profiled_sync_calls_per_step']:.2f} sync calls per step, a step "
+            f"{breakdown['profiled_step_ms']:.3f} ms of host time launching "
+            f"{breakdown['profiled_step_device_ms']:.3f} ms of card work "
+            f"({breakdown['profiled_step_busy_share']:.1%})")
+    compare = card_against_cpu("ae", AUTOENCODER_CONFIG, calcs["ae"], CARD_CPU_FRAMES)
+    out.update({f"ae_card_cpu_{k}": v for k, v in compare.items()})
+    log(f"[{card}] AE cut-down training ({CARD_CPU_FRAMES} frames, {CUT_TRIES} tries, "
+        f"{CUT_EPOCHS} epochs): card {compare['card_s']:.3f} s, CPU "
+        f"{compare['cpu_s']:.3f} s, losses within rel {compare['loss_max_rel_diff']:.3g}, "
+        f"projection within {compare['projection_max_abs_diff']:.3g}")
+    torch.cuda.empty_cache()
+    log(json.dumps(out))
     return out
 
 
@@ -1108,8 +1407,9 @@ def main() -> int:
     stats = [k1.STATS, k2.STATS, k3.STATS]
     with tempfile.TemporaryDirectory() as tmp:
         result, calc, ctx = main_path(coords, tmp, stats)
-        surface = cv_surface(calc, ctx, tmp, stats, card)
-        del ctx
+        surface, linear = cv_surface(calc, ctx, tmp, stats, card)
+        phase6 = autoencoders(calc, linear, ctx, tmp, stats, card)
+        del ctx, linear
     epochs = result["epoch_s"]
     log(f"[{card}] featurize {N_FRAMES / result['featurize_s']:.0f} frames/s "
         f"({result['featurize_s']:.3f} s, host decode alone "
@@ -1130,8 +1430,8 @@ def main() -> int:
     log(json.dumps(result))
 
     # Phase 5: the card against the CPU; one training step in detail.
-    compare = card_against_cpu(calc)
-    compare.update(training_breakdown(calc))
+    compare = card_against_cpu("deep_tica", TRAIN_CONFIG, calc, CUT_FRAMES)
+    compare.update(training_breakdown("deep_tica", TRAIN_CONFIG, calc))
     log(f"[{card}] cut-down training ({CUT_FRAMES} frames, {CUT_TRIES} tries, "
         f"{CUT_EPOCHS} epochs): card {compare['card_s']:.3f} s, CPU "
         f"{compare['cpu_s']:.3f} s, losses within rel "
@@ -1152,7 +1452,8 @@ def main() -> int:
     for key in ("K1", "K2", "K3"):
         rec = dict(records[key])
         by_path = {"main_path": result["launches"][rec["name"]],
-                   "cv_surface": surface["launches"][rec["name"]]}
+                   "cv_surface": surface["launches"][rec["name"]],
+                   "autoencoders": phase6["launches"][rec["name"]]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
         rec["kernel_ms"] = rec["ms"]

@@ -2,7 +2,12 @@
 which `CVCalculator.load` reads a model.zip's `cv_name` against)."""
 
 from deep_cartograph_torch.cv.base import CVCalculator, cv_components_map, cv_names_map
-from deep_cartograph_torch.cv.deep import DeepTICACalculator, NonLinear
+from deep_cartograph_torch.cv.deep import (
+    AECalculator,
+    DeepTICACalculator,
+    NonLinear,
+    VAECalculator,
+)
 from deep_cartograph_torch.cv.linear import (
     HTICACalculator,
     LinearCalculator,
@@ -22,8 +27,6 @@ def _not_ported(name: str, item: str):
     return NotPorted
 
 
-AECalculator = _not_ported("AE", "ROADMAP Queue 1 item 4, AE and VAE")
-VAECalculator = _not_ported("VAE", "ROADMAP Queue 1 item 4, AE and VAE")
 UMAP = _not_ported("UMAP", "ROADMAP Queue 1 item 7, geometry analysis and UMAP")
 
 cv_calculators_map = {

@@ -1,11 +1,13 @@
 """CVCalculator base class: data loading, the normalization contract, the
-run template, model persistence and sensitivity output (PyTorch).
+run template, model persistence, the PLUMED deployment files and
+sensitivity output (PyTorch).
 
 The port of the JAX package's cv/base.py: the same four feature
 normalization modes, the same run() template (compute -> normalize the CV
 -> project -> save -> sensitivity), the same self-describing model.zip
 (metadata.json, features_labels.txt, ref_topology.pdb, then each family's
-weights and normalization arrays), the same polymorphic `load`.
+weights and normalization arrays), the same polymorphic `load`, the same
+PLUMED zips (`write_plumed_files`).
 
 Differences, on purpose:
 
@@ -15,8 +17,8 @@ Differences, on purpose:
 - `run()` and `project_colvars` return (projection float32, CV labels)
   where the JAX package returns a DataFrame.
 - The sensitivity bar plot waits for ROADMAP Queue 1 item 6 (matplotlib);
-  the CSV and the per-atom structure map are written. The PLUMED files
-  (`write_plumed_files`) are their own ROADMAP item.
+  the CSV and the per-atom structure map are written.
+- The PLUMED inputs' first line names the port (`plumed/assembler.py`).
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from deep_cartograph_torch.io.colvars import (
 )
 from deep_cartograph_torch.io.topology import create_pdb
 from deep_cartograph_torch.stats.descriptors import feature_statistics
-from deep_cartograph_torch.utils.common import unzip_files, zip_files
+from deep_cartograph_torch.utils.common import remove_files, unzip_files, zip_files
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -92,6 +94,7 @@ class CVCalculator:
         self.feats_norm_mode: Optional[str] = self.configuration.get(
             "features_normalization", None
         )
+        self.bias: Dict = self.configuration.get("bias", {})
 
         self.ref_topology_path: Optional[str] = None
         self.training_data: Optional[torch.Tensor] = None
@@ -497,6 +500,119 @@ class CVCalculator:
                                                    np.asarray(sensitivities))
         if per_atom:
             map_sensitivity_to_structure(per_atom, self.ref_topology_path, folder)
+
+    # ------------------------------------------------------------------
+    # PLUMED deployment files (cf. reference cv_calculator.py:545-681)
+    # ------------------------------------------------------------------
+    def write_plumed_files(
+        self,
+        topology: Optional[str],
+        output_folder: str,
+        waypoint_structures: Optional[List[str]] = None,
+        device: DeviceLike = None,
+    ) -> None:
+        """plumed_{cv}_unbiased.zip (an input that computes the CV along a
+        run) and, with a bias configuration, plumed_{cv}_biased.zip (one
+        that biases the run along it) in `output_folder`, for `topology`:
+        the model's features translated onto it, the topology, the fit
+        template for coordinate features, a deep CV's TorchScript weights
+        (traced on `device`; None means CUDA) and, with `add_rmsd_restraint`
+        and waypoint structures, the RMSD restraint's reference (waypoints
+        aligned on `device`)."""
+        from deep_cartograph_torch.features.translator import Translator
+        from deep_cartograph_torch.geom.structure import (
+            create_plumed_rmsd_template,
+            create_rmsd_waypoint_reference,
+        )
+        from deep_cartograph_torch.plumed.builder import (
+            ComputeCVBuilder,
+            ComputeEnhancedSamplingBuilder,
+        )
+
+        device = resolve_device(device)
+        if topology is None:
+            logger.warning("Topology not provided. Skipping PLUMED files creation.")
+            return
+        topology_name = Path(topology).name
+        plumed_files: List[str] = []
+
+        plumed_topology_path = os.path.join(output_folder, "plumed_topology.pdb")
+        create_pdb(topology, plumed_topology_path)
+        plumed_files.append(plumed_topology_path)
+
+        ref_plumed_topology_path = os.path.join(output_folder, "ref_plumed_topology.pdb")
+        create_pdb(self.ref_topology_path, ref_plumed_topology_path)
+        features_list = Translator(ref_plumed_topology_path, plumed_topology_path,
+                                   self.features_ref_labels).run()
+        if None in features_list:
+            failed = [self.features_ref_labels[i]
+                      for i, f in enumerate(features_list) if f is None]
+            logger.error("Failed to translate features to topology %s: %s. Skipping "
+                         "PLUMED files creation.", topology_name, failed)
+            return
+
+        fit_template_path = None
+        if any(f.startswith("coord") for f in features_list):
+            fit_template_path = os.path.join(output_folder, "fit_template.pdb")
+            create_plumed_rmsd_template(topology, fit_template_path)
+            plumed_files.append(fit_template_path)
+
+        if self.get_cv_type() == "non-linear":
+            self.weights_path = os.path.join(output_folder, f"{self.cv_name}_weights.pt")
+            self.save_weights(self.weights_path, device)
+            plumed_files.append(self.weights_path)
+
+        plumed_input_path = os.path.join(output_folder, f"plumed_input_{self.cv_name}.dat")
+        builder_args = {
+            "plumed_input_path": plumed_input_path,
+            "topology_path": plumed_topology_path,
+            "features_list": features_list,
+            "traj_stride": 1,
+            "cv_type": self.get_cv_type(),
+            "cv_params": self.get_cv_parameters(),
+            "fit_template_path": fit_template_path,
+        }
+        ComputeCVBuilder(**builder_args).build(f"{self.cv_name}_out.dat")
+        zip_files(os.path.join(output_folder, f"plumed_{self.cv_name}_unbiased.zip"),
+                  *plumed_files, plumed_input_path)
+        os.remove(plumed_input_path)
+
+        if self.bias:
+            rmsd_reference_path = None
+            if self.bias.get("add_rmsd_restraint"):
+                if waypoint_structures:
+                    rmsd_reference_path = os.path.join(output_folder,
+                                                       "rmsd_restraint_reference.pdb")
+                    create_rmsd_waypoint_reference(
+                        waypoint_structures, plumed_topology_path, rmsd_reference_path,
+                        self.bias.get("align_waypoint_structures", True), device=device)
+                    plumed_files.append(rmsd_reference_path)
+                else:
+                    logger.warning("No waypoint structures provided for RMSD restraint "
+                                   "guide. Skipping RMSD restraint.")
+            method = self.bias["method"]
+            plumed_input_path = os.path.join(
+                output_folder, f"plumed_input_{self.cv_name}_{method}.dat")
+            plumed_files.append(plumed_input_path)
+            builder_args.update({
+                "sampling_method": method,
+                "sampling_params": self.bias["args"],
+                "plumed_input_path": plumed_input_path,
+                "rmsd_restraint_reference_path": rmsd_reference_path,
+                "rmsd_restraint_k": self.bias.get("rmsd_restraint_k"),
+                "rmsd_restraint_eq": self.bias.get("rmsd_restraint_eq"),
+            })
+            ComputeEnhancedSamplingBuilder(**builder_args).build(
+                f"{self.cv_name}_{method}_out.dat")
+            zip_files(os.path.join(output_folder, f"plumed_{self.cv_name}_biased.zip"),
+                      *plumed_files)
+        else:
+            # a model loaded from a zip carries no bias configuration; the
+            # unbiased input is still written (the reference errors out)
+            logger.warning("No bias configuration on this calculator; skipping the "
+                           "biased PLUMED input.")
+        remove_files(*plumed_files)
+        os.remove(ref_plumed_topology_path)
 
     # Getters ------------------------------------------------------------
     def get_labels(self) -> List[str]:

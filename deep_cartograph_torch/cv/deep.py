@@ -1,12 +1,16 @@
-"""Deep-TICA CV calculator (PyTorch): the port of the JAX package's
-cv/deep.py training path.
+"""Deep CV calculators (PyTorch): deep-TICA, the autoencoder (AE) and the
+variational autoencoder (VAE); the port of the JAX package's cv/deep.py.
 
 Same semantics as the JAX package: the seeded tries (seed + 1 .. seed + T,
-each with its own random split of the lag pairs), early stopping,
-best/last model selection, batch-size clamping to a power of two, the
--sum(eigenvalues) loss over a weighted batch TICA with the -dim sanity
-bound, the output TICA layer fitted on the network outputs over all pairs,
-and the min-max post-normalization of the latent to [-1, 1].
+each with its own random split of the data), early stopping, best/last
+model selection (the VAE's post-annealing checkpoint), KL annealing,
+batch-size clamping to a power of two, the decoder's last activation
+coupled to the feature normalization, batchnorm folded into the dense
+layers with full-training-set statistics once a net is trained, the
+deep-TICA -sum(eigenvalues) loss over a weighted batch TICA with the -dim
+sanity bound and its output TICA layer fitted on the network outputs over
+all pairs, the AE's reconstruction MSE, the VAE's ELBO, and the min-max
+post-normalization of the CV to [-1, 1].
 
 Differences, on purpose:
 
@@ -16,13 +20,14 @@ Differences, on purpose:
   as the reference the tests hold the batched tries to.
 - Everything runs on the calculator's device (CUDA unless the caller asks
   for the CPU); there is no small-work routing to the host.
+- Dropout masks and the VAE's noise come from torch generators (one per
+  try), so runs with either match the JAX package only in distribution.
 - model.zip holds the parameters in Flax's msgpack layout, written and
   read without Flax (`models/msgpack.py`), so either package loads the
   other's; `cv_weights.pt` is the port's own CV traced to TorchScript.
   Try checkpoints are `model.msgpack` + `score.txt` (no Orbax mirror).
-- Not yet ported (ROADMAP): batchnorm folding for the deployed net (a
-  config with batchnorm raises; Queue 1 item 4), the loss and eigenvalue
-  plots (item 6), the AE and VAE calculators (item 4).
+- Not yet ported (ROADMAP Queue 1 item 6): the loss, eigenvalue and KL
+  plots.
 """
 
 from __future__ import annotations
@@ -43,10 +48,16 @@ from deep_cartograph_torch.cv.tica_math import (
     tica,
     timelagged_covariances,
 )
-from deep_cartograph_torch.deploy import DeepTICAProjection
-from deep_cartograph_torch.models.networks import DeepTICANet, DeepTICAStack, Params
+from deep_cartograph_torch.deploy import NetProjection
+from deep_cartograph_torch.models.networks import (
+    Params,
+    TrainedNet,
+    fold_feedforward_batchnorm,
+    stack_from_architecture,
+)
 from deep_cartograph_torch.models.torch_export import (
     TorchScriptProjector,
+    check_exportable,
     save_torchscript,
 )
 from deep_cartograph_torch.models.training import (
@@ -116,8 +127,15 @@ class NonLinear(CVCalculator):
         )
 
         self.encoder_config: Dict = dict(self.architecture_config.get("encoder") or {})
+        decoder_config = self.architecture_config.get("decoder")
+        self.decoder_config: Optional[Dict] = (
+            None if decoder_config is None else dict(decoder_config)
+        )
         self.encoder_hidden_layers: List[int] = list(
             self.encoder_config.get("layers", [])
+        )
+        self.decoder_hidden_layers: List[int] = list(
+            (self.decoder_config or {}).get("layers", [])
         )
 
         self.cv_score: Optional[float] = None
@@ -127,6 +145,7 @@ class NonLinear(CVCalculator):
         self.architecture: Optional[Dict] = None
         self.params: Optional[Params] = None
         self.module = None
+        self.net: Optional[TrainedNet] = None
         self.post_mean: Optional[np.ndarray] = None
         self.post_range: Optional[np.ndarray] = None
         self.training_metrics_paths: List[str] = []
@@ -135,35 +154,62 @@ class NonLinear(CVCalculator):
     # ------------------------------------------------------------------
     # Option plumbing
     # ------------------------------------------------------------------
-    def _layer_options(self, config: Dict) -> Dict:
+    def _layer_options(self, config: Dict, is_decoder: bool = False) -> Dict:
         """Per-transition option lists with the last layer appended (cf.
-        set_up_encoder_last_layer, cv_calculator.py:1155-1219)."""
+        set_up_encoder_last_layer / set_up_decoder_last_layer,
+        cv_calculator.py:1155-1219). A decoder's last activation follows the
+        feature normalization: custom_sigmoid onto min_max_range1's [0, 1],
+        tanh onto min_max_range2's [-1, 1]."""
+        last_act = config.get("last_layer_activation")
+        if is_decoder:
+            forced = {"min_max_range1": "custom_sigmoid",
+                      "min_max_range2": "tanh"}.get(self.feats_norm_mode)
+            if forced is not None and last_act != forced:
+                logger.warning("Decoder last activation changed to '%s' to match "
+                               "%s normalization.", forced, self.feats_norm_mode)
+            last_act = forced or last_act
         return {
-            "activation": list(config.get("activation") or [])
-            + [config.get("last_layer_activation")],
+            "activation": list(config.get("activation") or []) + [last_act],
             "dropout": list(config.get("dropout") or [])
             + [config.get("last_layer_dropout")],
             "batchnorm": list(config.get("batchnorm") or [])
             + [config.get("last_layer_batchnorm", False)],
         }
 
-    def _norm_arrays(self):
-        """norm_in arrays baked into the model, float32 on the device."""
+    def _decoder_source(self) -> Dict:
+        """The decoder's options: its own block, else the encoder's."""
+        return self.decoder_config if self.decoder_config is not None else dict(
+            self.encoder_config)
+
+    def _mirrored_decoder_hidden(self) -> List[int]:
+        """The decoder's hidden widths: its own, else the encoder's reversed."""
+        if self.decoder_config is not None:
+            return self.decoder_hidden_layers
+        return self.encoder_hidden_layers[::-1]
+
+    def _norm_lists(self) -> Tuple[Optional[List[float]], Optional[List[float]]]:
+        """norm_in arrays baked into the model: float32 values, as JSON lists."""
         if self.feats_norm_mode is None:
             return None, None
-        return (
-            torch.as_tensor(self.features_norm_mean, dtype=torch.float32,
-                            device=self.device),
-            torch.as_tensor(self.features_norm_range, dtype=torch.float32,
-                            device=self.device),
-        )
+        return (np.asarray(self.features_norm_mean, np.float32).tolist(),
+                np.asarray(self.features_norm_range, np.float32).tolist())
+
+    def _normalized_training_inputs(self) -> torch.Tensor:
+        """The training inputs as the network sees them (after norm_in)."""
+        x = self.training_data
+        if self.feats_norm_mode is not None:
+            x = (x - torch.as_tensor(self.features_norm_mean, dtype=torch.float32,
+                                     device=self.device)) / torch.as_tensor(
+                self.features_norm_range, dtype=torch.float32, device=self.device)
+        return x
 
     # Subclass surface --------------------------------------------------
-    def build_module(self):
-        raise NotImplementedError
-
     def build_architecture_dict(self) -> Dict:
         raise NotImplementedError
+
+    def build_module(self):
+        """The stack of T tries that training runs, on the device."""
+        return stack_from_architecture(self.build_architecture_dict()).to(self.device)
 
     def loss_fn(self, params, batch, generators, beta, train=True):
         raise NotImplementedError
@@ -234,11 +280,6 @@ class NonLinear(CVCalculator):
     def train(self) -> bool:
         """Train the seeded tries and keep the best valid one. Returns False
         when no try produced a valid model."""
-        if any(self._layer_options(self.encoder_config)["batchnorm"]):
-            raise NotImplementedError(
-                "Batchnorm in the encoder needs fold_feedforward_batchnorm, "
-                "which is not ported yet (ROADMAP Queue 1, AE and VAE)."
-            )
         logger.info("Training %s ...", cv_names_map[self.cv_name])
         dataset = self.train_datasets()
         provided_valid = self.valid_datasets()
@@ -363,8 +404,55 @@ class NonLinear(CVCalculator):
         return True
 
     def finalize_model(self) -> None:
-        """Post-training hook (DeepTICA fits its output TICA layer here)."""
+        """The trained net as deployed: its architecture, batchnorm folded,
+        the serving net built (DeepTICA then fits its output TICA layer)."""
         self.architecture = self.build_architecture_dict()
+        self._fold_batchnorm_for_eval()
+        self.build_module_from_architecture()
+
+    @torch.no_grad()
+    def _fold_batchnorm_for_eval(self) -> None:
+        """Fold batchnorm into the dense layers for the deployed net.
+
+        Training normalizes with each batch's statistics; the deployed net
+        freezes the full training set's and folds them into the dense layer
+        before each batchnorm: deterministic projections whatever the batch,
+        meaningful sensitivity Jacobians, an exactly exportable plain MLP.
+        The architecture's batchnorm flags are cleared accordingly. The
+        VAE's decoder takes its statistics over the mean head's latent, the
+        path the deployed CV evaluates."""
+        arch = self.architecture
+        eo = arch.get("encoder_options") or {}
+        do = arch.get("decoder_options") or {}
+        if not (any(eo.get("batchnorm", [])) or any(do.get("batchnorm", []))):
+            return
+        kind = arch["kind"]
+        xn = self._normalized_training_inputs()
+        params = self.params
+        if kind == "deep_tica":
+            folded, _ = fold_feedforward_batchnorm(
+                params, arch["layers"], eo.get("activation", []),
+                eo.get("batchnorm", []), xn, "nn/")
+        else:
+            folded, z = fold_feedforward_batchnorm(
+                params, arch["encoder_layers"], eo.get("activation", []),
+                eo.get("batchnorm", []), xn, "encoder/")
+            decoder_layers = list(arch["decoder_layers"])
+            if kind == "vae":
+                z = z @ params["mean_nn/kernel"] + params["mean_nn/bias"]
+                decoder_layers = [arch["n_cvs"]] + decoder_layers
+            dec, _ = fold_feedforward_batchnorm(
+                params, decoder_layers, do.get("activation", []),
+                do.get("batchnorm", []), z, "decoder/")
+            folded.update(dec)
+        scopes = {k.split("/")[0] for k in folded}
+        self.params = {**{k: v for k, v in params.items()
+                          if k.split("/")[0] not in scopes}, **folded}
+        for opts in (eo, do):
+            if opts:
+                opts["batchnorm"] = [False] * len(opts.get("batchnorm", []))
+        logger.info("Folded batchnorm (training-set statistics) into the dense "
+                    "weights of the deployed model.")
 
     def compute_cv(self) -> None:
         if self.train():
@@ -376,8 +464,37 @@ class NonLinear(CVCalculator):
     # Projection + postprocessing (latent min-max to [-1, 1];
     # cf. reference normalize_cv, cv_calculator.py:1735-1754)
     # ------------------------------------------------------------------
+    def _output_layer(self) -> Optional[np.ndarray]:
+        """A linear layer on the net's outputs (deep-TICA's TICA
+        eigenvectors), or None."""
+        return None
+
+    def _output_tensor(self) -> Optional[torch.Tensor]:
+        layer = self._output_layer()
+        if layer is None:
+            return None
+        return torch.as_tensor(layer, dtype=torch.float32, device=self.device)
+
+    @torch.no_grad()
     def latent(self, data) -> np.ndarray:
-        raise NotImplementedError
+        """The CV before post-normalization (net, then the output layer)."""
+        if self._torch_projector is not None:
+            raise RuntimeError("latent() is not available for a TorchScript-only model")
+        out = self.net(self._as_device_matrix(data))
+        layer = self._output_tensor()
+        if layer is not None:
+            out = out @ layer
+        return out.cpu().numpy()
+
+    def projection(self):
+        """The trained CV as a serving module (`deploy.FramesToCV`): net,
+        output layer and post-normalization, as far as they are fitted (or
+        the TorchScript module of a zip that holds only that)."""
+        if self._torch_projector is not None:
+            return self._torch_projector.module
+        # a copy: FramesToCV moves its projection to its own device
+        return NetProjection(copy.deepcopy(self.net), self._output_layer(),
+                             self.post_mean, self.post_range)
 
     def normalize_cv(self) -> None:
         latent = self.latent(self.training_data)
@@ -401,9 +518,11 @@ class NonLinear(CVCalculator):
     # ------------------------------------------------------------------
     # Persistence
     # ------------------------------------------------------------------
-    def save_weights(self, weights_path: str) -> None:
-        """TorchScript weights, for PLUMED."""
-        save_torchscript(self.projection(), self.num_features, weights_path)
+    def save_weights(self, weights_path: str, device: DeviceLike = None) -> None:
+        """TorchScript weights, for PLUMED, traced on `device` (None means
+        CUDA)."""
+        check_exportable(self.architecture)
+        save_torchscript(self.projection(), self.num_features, weights_path, device)
 
     def save_model(self) -> None:
         super().save_model()
@@ -411,7 +530,7 @@ class NonLinear(CVCalculator):
         save_params(self.params, os.path.join(m, "flax_params.msgpack"))
         with open(os.path.join(m, "architecture.json"), "w") as fh:
             json.dump(self.architecture, fh)
-        self.save_weights(os.path.join(m, "cv_weights.pt"))
+        self.save_weights(os.path.join(m, "cv_weights.pt"), self.device)
         self._zip_and_clean_model()
 
     def _load_from_folder(self, folder_path: str) -> None:
@@ -447,7 +566,10 @@ class NonLinear(CVCalculator):
             self.features_norm_range = np.asarray(arch["norm_range"])
 
     def build_module_from_architecture(self) -> None:
-        raise NotImplementedError
+        """The stack and the serving net of `self.architecture` and
+        `self.params`, on the device."""
+        self.module = stack_from_architecture(self.architecture).to(self.device)
+        self.net = TrainedNet(self.module, self.params).to(self.device)
 
     def get_cv_parameters(self) -> Dict:
         return {"cv_name": self.cv_name, "cv_dimension": self.cv_dimension,
@@ -455,6 +577,29 @@ class NonLinear(CVCalculator):
 
     def get_cv_type(self) -> str:
         return "non-linear"
+
+    def sensitivity_analysis(self) -> None:
+        """Mean |d cv_k / d x_j| over the training set and the CV
+        components (before post-normalization), by `vmap(jacrev)` over
+        chunks of _SENSITIVITY_CHUNK_FRAMES frames on the device."""
+        from torch.func import jacrev, vmap
+
+        layer = self._output_tensor()
+
+        def forward(x):
+            out = self.net(x[None])
+            return (out if layer is None else out @ layer)[0]
+
+        jac_of = vmap(jacrev(forward))
+        total = torch.zeros(self.num_features, dtype=torch.float64, device=self.device)
+        data = self.training_data
+        step = _SENSITIVITY_CHUNK_FRAMES
+        for s in range(0, data.shape[0], step):
+            jac = jac_of(data[s : s + step])                # (n, n_cvs, features)
+            total += jac.abs().sum((0, 1)).double()
+        sens = (total / (data.shape[0] * self.cv_dimension)).float().cpu().numpy()
+        self._save_sensitivity(self.features_ref_labels, sens,
+                               str(self.sensitivity_output_folder))
 
     def plot_training_metrics(self) -> None:
         """The loss curves (.npy, zipped into training_metrics.zip) and the
@@ -476,7 +621,7 @@ class NonLinear(CVCalculator):
             remove_files(*self.training_metrics_paths)
 
 
-def deep_tica_batch_eigvals(module: DeepTICAStack, params: Params, batch,
+def deep_tica_batch_eigvals(module, params: Params, batch,
                             generators, reg: float, train: bool = True):
     """Weighted batch TICA eigenvalues (T, n_cvs) of the network outputs:
     the DeepTICA objective's core (cf. reference cv_calculator.py:2507-2627).
@@ -495,7 +640,7 @@ def deep_tica_batch_eigvals(module: DeepTICAStack, params: Params, batch,
     return evals
 
 
-def make_deep_tica_loss(module: DeepTICAStack, reg: float, dim: int):
+def make_deep_tica_loss(module, reg: float, dim: int):
     """Trainer-compatible DeepTICA loss over `module` (-sum of eigenvalues)."""
 
     def loss_fn(params, batch, generators, beta, train=True):
@@ -520,7 +665,6 @@ class DeepTICACalculator(NonLinear):
         self.val_x_lag: Optional[torch.Tensor] = None
         self.tica_evecs: Optional[np.ndarray] = None
         self.eigenvalues_: Optional[np.ndarray] = None
-        self.net = None
 
     def _set_training_data(self, features, traj_labels, feature_names) -> None:
         super()._set_training_data(features, traj_labels, feature_names)
@@ -545,19 +689,14 @@ class DeepTICACalculator(NonLinear):
     def _layers(self) -> List[int]:
         return [self.num_features] + self.encoder_hidden_layers + [self.cv_dimension]
 
-    def build_module(self) -> DeepTICAStack:
-        mean, rng = self._norm_arrays()
-        return DeepTICAStack(self._layers(), self._layer_options(self.encoder_config),
-                             norm_mean=mean, norm_range=rng)
-
     def build_architecture_dict(self) -> Dict:
-        mean, rng = self._norm_arrays()
+        mean, rng = self._norm_lists()
         return {
             "kind": "deep_tica",
             "layers": self._layers(),
             "encoder_options": self._layer_options(self.encoder_config),
-            "norm_mean": None if mean is None else mean.cpu().numpy().tolist(),
-            "norm_range": None if rng is None else rng.cpu().numpy().tolist(),
+            "norm_mean": mean,
+            "norm_range": rng,
             "tica_evecs": None,
             "post_mean": None,
             "post_range": None,
@@ -581,11 +720,9 @@ class DeepTICACalculator(NonLinear):
         return True
 
     def finalize_model(self) -> None:
-        """Build the trained net and fit the output TICA layer on its
+        """The deployed net, then the output TICA layer fitted on its
         outputs over all training pairs."""
         super().finalize_model()
-        self.net = DeepTICANet(self.module.layers, self.module.options, self.params,
-                               self.module.norm_mean, self.module.norm_range)
         with torch.no_grad():
             q_t = self.net(self.x_t)
             q_lag = self.net(self.x_lag)
@@ -594,63 +731,118 @@ class DeepTICACalculator(NonLinear):
         )
         self.architecture["tica_evecs"] = self.tica_evecs.tolist()
 
-    def build_module_from_architecture(self) -> None:
-        arch = self.architecture
-        if arch.get("tica_evecs") is not None:
-            self.tica_evecs = np.asarray(arch["tica_evecs"])
-        self.net = DeepTICANet(arch["layers"], arch["encoder_options"], self.params,
-                               arch.get("norm_mean"), arch.get("norm_range")
-                               ).to(self.device)
+    def _restore_from_architecture(self) -> None:
+        super()._restore_from_architecture()
+        if self.architecture.get("tica_evecs") is not None:
+            self.tica_evecs = np.asarray(self.architecture["tica_evecs"])
 
-    def projection(self):
-        """The trained CV as a serving module (`deploy.FramesToCV`): net,
-        TICA layer and post-normalization, as far as they are fitted (or
-        the TorchScript module of a zip that holds only that)."""
-        if self._torch_projector is not None:
-            return self._torch_projector.module
-        # a copy: FramesToCV moves its projection to its own device
-        return DeepTICAProjection(copy.deepcopy(self.net), self.tica_evecs,
-                                  self.post_mean, self.post_range)
-
-    def _evecs(self) -> Optional[torch.Tensor]:
-        if self.tica_evecs is None:
-            return None
-        return torch.as_tensor(self.tica_evecs, dtype=torch.float32, device=self.device)
-
-    @torch.no_grad()
-    def latent(self, data) -> np.ndarray:
-        if self._torch_projector is not None:
-            raise RuntimeError("latent() is not available for a TorchScript-only model")
-        out = self.net(self._as_device_matrix(data))
-        if self.tica_evecs is not None:
-            out = out @ self._evecs()
-        return out.cpu().numpy()
-
-    def sensitivity_analysis(self) -> None:
-        """Mean |d cv_k / d x_j| over the training set and the CV
-        components (before post-normalization), by `vmap(jacrev)` over
-        chunks of _SENSITIVITY_CHUNK_FRAMES frames on the device."""
-        from torch.func import jacrev, vmap
-
-        evecs = self._evecs()
-
-        def forward(x):
-            out = self.net(x[None])
-            return (out if evecs is None else out @ evecs)[0]
-
-        jac_of = vmap(jacrev(forward))
-        total = torch.zeros(self.num_features, dtype=torch.float64, device=self.device)
-        data = self.training_data
-        step = _SENSITIVITY_CHUNK_FRAMES
-        for s in range(0, data.shape[0], step):
-            jac = jac_of(data[s : s + step])                # (n, n_cvs, features)
-            total += jac.abs().sum((0, 1)).double()
-        sens = (total / (data.shape[0] * self.cv_dimension)).float().cpu().numpy()
-        self._save_sensitivity(self.features_ref_labels, sens,
-                               str(self.sensitivity_output_folder))
+    def _output_layer(self) -> Optional[np.ndarray]:
+        return self.tica_evecs
 
     def plot_training_metrics(self) -> None:
         super().plot_training_metrics()
         if self.eigenvalues_ is not None:
             np.savetxt(os.path.join(str(self.training_output_folder), "eigenvalues.txt"),
                        np.asarray(self.eigenvalues_), fmt="%.7g")
+
+
+def weighted_mean(values: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Per try, the mean of (T, B) values over the rows of weight 1 (padded
+    rows of a ragged batch weigh 0): (T,)."""
+    return (values * weights).sum(-1) / weights.sum(-1).clamp_min(1e-12)
+
+
+class AECalculator(NonLinear):
+    """Autoencoder CV (cf. reference cv_calculator.py:2386-2505): the
+    encoder's latent, trained by the decoder's reconstruction MSE of the
+    normalized input."""
+
+    def __init__(self, configuration=None, output_path=None, device: DeviceLike = None):
+        super().__init__(configuration, output_path, device)
+        self.cv_name = "ae"
+
+    def build_architecture_dict(self) -> Dict:
+        mean, rng = self._norm_lists()
+        return {
+            "kind": "ae",
+            "encoder_layers": [self.num_features] + self.encoder_hidden_layers
+            + [self.cv_dimension],
+            "decoder_layers": [self.cv_dimension] + self._mirrored_decoder_hidden()
+            + [self.num_features],
+            "encoder_options": self._layer_options(self.encoder_config),
+            "decoder_options": self._layer_options(self._decoder_source(),
+                                                   is_decoder=True),
+            "norm_mean": mean,
+            "norm_range": rng,
+            "post_mean": None,
+            "post_range": None,
+        }
+
+    def loss_fn(self, params, batch, generators, beta, train=True):
+        """Reconstruction MSE per try; train=False (validation) turns
+        dropout off."""
+        x_hat, xn = self.module.reconstruct(params, batch["data"], train, generators)
+        return weighted_mean(((x_hat - xn) ** 2).mean(-1), batch["weight"]), {}
+
+
+class VAECalculator(NonLinear):
+    """Variational autoencoder CV (cf. reference cv_calculator.py:2629-2949):
+    the latent mean, trained by the ELBO (reconstruction MSE + beta KL)
+    under KL annealing; the best model is taken after the annealing."""
+
+    def __init__(self, configuration=None, output_path=None, device: DeviceLike = None):
+        super().__init__(configuration, output_path, device)
+        self.cv_name = "vae"
+        kl_cfg = self.training_config.get("kl_annealing")
+        if kl_cfg is not None:
+            self._kl = KLAnnealing(
+                type=kl_cfg.get("type", "linear"),
+                start_beta=kl_cfg.get("start_beta", 1e-6),
+                max_beta=kl_cfg.get("max_beta", 0.01),
+                start_epoch=kl_cfg.get("start_epoch", self.max_epochs // 2),
+                n_cycles=kl_cfg.get("n_cycles", 4),
+                n_epochs_anneal=kl_cfg.get("n_epochs_anneal", self.max_epochs // 4),
+            )
+        else:
+            # the reference's defaults (cf. cv_calculator.py:2654-2661)
+            self._kl = KLAnnealing(
+                type="sigmoid", start_beta=1e-6, max_beta=0.01,
+                start_epoch=self.max_epochs // 2, n_cycles=1,
+                n_epochs_anneal=self.max_epochs // 4,
+            )
+
+    def kl_annealing_schedule(self) -> KLAnnealing:
+        return self._kl
+
+    def uses_post_annealing(self) -> bool:
+        return self._kl.n_epochs_anneal > 0
+
+    def build_architecture_dict(self) -> Dict:
+        mean, rng = self._norm_lists()
+        # the hidden stack keeps the user's per-layer options as they are
+        # (cf. reference set_up_encoder_last_layer special-casing the VAE)
+        return {
+            "kind": "vae",
+            "n_cvs": self.cv_dimension,
+            "encoder_layers": [self.num_features] + self.encoder_hidden_layers,
+            "decoder_layers": self._mirrored_decoder_hidden() + [self.num_features],
+            "encoder_options": {
+                key: list(self.encoder_config.get(key) or [])
+                for key in ("activation", "dropout", "batchnorm")
+            },
+            "decoder_options": self._layer_options(self._decoder_source(),
+                                                   is_decoder=True),
+            "norm_mean": mean,
+            "norm_range": rng,
+            "post_mean": None,
+            "post_range": None,
+        }
+
+    def loss_fn(self, params, batch, generators, beta, train=True):
+        """ELBO per try, with its two parts as metrics; train=False
+        (validation) turns dropout off, the latent sample stays random, as
+        in mlcolvar."""
+        recon, kl = self.module.elbo_parts(params, batch["data"], generators, train)
+        recon_m = weighted_mean(recon, batch["weight"])
+        kl_m = weighted_mean(kl, batch["weight"])
+        return recon_m + beta * kl_m, {"reconstruction_loss": recon_m, "kl_loss": kl_m}

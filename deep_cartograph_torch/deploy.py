@@ -7,9 +7,10 @@ CV, without leaving the device between the two steps:
     pipeline = FramesToCV(projection, topology, features_list)
     cv_values = pipeline(coords_chunk)      # (C, A, 3) -> (C, dim)
 
-A projection is one of the two modules below; `models/weights.py` builds
-them from a trained CV's arrays, and a trained calculator gives its own
-(`projection()`). `FramesToCV.from_model_zip` serves a saved model.zip:
+A projection is one of the two modules below (linear CVs; deep-TICA, AE
+and VAE); `models/weights.py` builds them from a trained CV's arrays, and
+a trained calculator gives its own (`projection()`).
+`FramesToCV.from_model_zip` serves a saved model.zip of any family:
 
     pipeline = FramesToCV.from_model_zip("model.zip", "topology.pdb")
 """
@@ -26,7 +27,7 @@ from torch import nn
 from deep_cartograph_torch.features.grammar import compile_plan
 from deep_cartograph_torch.geom.kernels import PlanEvaluator
 from deep_cartograph_torch.io.topology import Topology
-from deep_cartograph_torch.models.networks import DeepTICANet
+from deep_cartograph_torch.models.networks import TrainedNet
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -51,12 +52,12 @@ class LinearProjection(nn.Module):
         return (normalized @ self.weights - self.cmean) / self.crange
 
 
-class DeepTICAProjection(nn.Module):
-    """Deep-TICA CV: network, then the TICA combination of its outputs,
-    then the min-max post normalization (each optional, as on the JAX
-    side)."""
+class NetProjection(nn.Module):
+    """Deep CV (deep-TICA, AE, VAE): a single-try net (`TrainedNet`), then
+    deep-TICA's TICA combination of its outputs, then the min-max post
+    normalization (each optional, as on the JAX side)."""
 
-    def __init__(self, net: DeepTICANet, tica_evecs=None, post_mean=None,
+    def __init__(self, net: TrainedNet, tica_evecs=None, post_mean=None,
                  post_range=None):
         super().__init__()
         self.net = net

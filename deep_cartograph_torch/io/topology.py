@@ -3,7 +3,8 @@
 The part of the JAX package's io/topology.py that the port uses
 (`Topology.from_pdb`/`from_file`, `features.grammar.compile_plan`, the
 residue sequence of the topology mapper, `write_pdb`/`create_pdb` of the
-model.zip and the sensitivity maps), copied so the port imports nothing of
+model.zip, the sensitivity maps and the PLUMED files, the PLUMED atom
+numbers), copied so the port imports nothing of
 the JAX package. Only PDB is read; the other topology formats (GRO, ...)
 come with ROADMAP Queue 1 item 6. Parsing is host-side (not hot);
 coordinates become numpy arrays ready for device upload.
@@ -69,6 +70,10 @@ class Topology:
             return np.arange(self.n_atoms)
         mask = evaluate_selection(selection, self)
         return np.nonzero(mask)[0]
+
+    def indices_one_based(self, selection: Optional[str] = None) -> List[int]:
+        """1-based indices as PLUMED numbers atoms (cf. reference md.py:855-890)."""
+        return [int(i) + 1 for i in self.select(selection)]
 
     def residue_sequence(self) -> Tuple[str, List[int]]:
         """One-letter sequence and resid list, residues in file order."""

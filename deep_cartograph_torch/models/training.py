@@ -321,8 +321,10 @@ class Trainer:
     loss_fn(params, batch, generators, beta, train) -> (loss (T,), aux: dict
     of (T,) tensors). `params` and every batch entry carry the tries axis
     first; the batch carries a (T, B) 'weight' mask for padded rows, which
-    the loss must use. `generators` are one torch.Generator per try, for
-    dropout; validation calls the loss with train=False (dropout off).
+    the loss must use. `generators` are one torch.Generator per try, on the
+    device, for dropout and the VAE's noise; validation calls the loss with
+    train=False (dropout off). `beta` is the epoch's KL weight (0 without
+    KL annealing).
     """
 
     def __init__(self, loss_fn: LossFn, config: TrainerConfig,

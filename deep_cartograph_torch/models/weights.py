@@ -1,10 +1,12 @@
 """Carry network parameters between the JAX package's layout and the port's.
 
-The JAX side's parameter tree of a deep-TICA calculator is {"nn":
-{"dense_<i>": {"kernel", "bias"}, "bn_scale_<i>", "bn_bias_<i>"}}. The
-port's parameters are the same tree flattened to "nn/dense_<i>/kernel"
-keys, with Flax's (in, out) kernels, so they carry across unchanged, with
-or without a leading tries axis. A model.zip stores them as the JAX
+The JAX side's parameter tree of a deep CV calculator is Flax's: deep-TICA
+{"nn": {"dense_<i>": {"kernel", "bias"}, "bn_scale_<i>", "bn_bias_<i>"}};
+the autoencoder {"encoder": {...}, "decoder": {...}}; the VAE {"encoder",
+"mean_nn": {"kernel", "bias"}, "log_var_nn", "decoder"}. The port's
+parameters are the same tree flattened to "nn/dense_<i>/kernel" keys, with
+Flax's (in, out) kernels, so they carry across unchanged, with or without
+a leading tries axis. A model.zip stores them as the JAX
 package does, in Flax's msgpack layout (`flax_params.msgpack`), through
 `models/msgpack.py`: `save_params` / `load_params`.
 """
@@ -16,9 +18,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from deep_cartograph_torch.deploy import DeepTICAProjection, LinearProjection
+from deep_cartograph_torch.deploy import LinearProjection, NetProjection
 from deep_cartograph_torch.models import msgpack
-from deep_cartograph_torch.models.networks import DeepTICANet
+from deep_cartograph_torch.models.networks import (
+    DeepTICAStack,
+    TrainedNet,
+    stack_from_architecture,
+)
 
 
 def flatten_tree(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -81,19 +87,36 @@ def deep_tica_from_jax(
     tica_evecs: Optional[np.ndarray],
     post_mean: Optional[np.ndarray],
     post_range: Optional[np.ndarray],
-) -> DeepTICAProjection:
-    """A `DeepTICAProjection` computing what a JAX deep-TICA calculator
+) -> NetProjection:
+    """A `NetProjection` computing what a JAX deep-TICA calculator
     projects. `params` is the calculator's parameter tree, as numpy arrays;
     `architecture` its architecture dict (layers, encoder_options,
     norm_mean, norm_range)."""
-    net = DeepTICANet(
-        architecture["layers"],
-        architecture.get("encoder_options") or {},
-        params_from_flax(params),
-        norm_mean=architecture.get("norm_mean"),
-        norm_range=architecture.get("norm_range"),
-    )
-    return DeepTICAProjection(net, tica_evecs, post_mean, post_range)
+    stack = DeepTICAStack(architecture["layers"], architecture.get("encoder_options") or {},
+                          architecture.get("norm_mean"), architecture.get("norm_range"))
+    return NetProjection(TrainedNet(stack, params_from_flax(params)), tica_evecs,
+                         post_mean, post_range)
+
+
+def _autoencoder_from_jax(params: Dict, architecture: Dict, kind: str) -> NetProjection:
+    if architecture["kind"] != kind:
+        raise ValueError(f"expected a {kind} architecture, got {architecture['kind']}")
+    net = TrainedNet(stack_from_architecture(architecture), params_from_flax(params))
+    return NetProjection(net, None, architecture.get("post_mean"),
+                         architecture.get("post_range"))
+
+
+def ae_from_jax(params: Dict, architecture: Dict) -> NetProjection:
+    """A `NetProjection` computing what a JAX autoencoder calculator
+    projects (the encoder's latent, then the post normalization). `params`
+    is the calculator's parameter tree, as numpy arrays; `architecture` its
+    architecture dict, post_mean and post_range included."""
+    return _autoencoder_from_jax(params, architecture, "ae")
+
+
+def vae_from_jax(params: Dict, architecture: Dict) -> NetProjection:
+    """As `ae_from_jax`, for a JAX VAE calculator (the latent mean)."""
+    return _autoencoder_from_jax(params, architecture, "vae")
 
 
 def linear_from_jax(

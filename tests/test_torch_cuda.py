@@ -214,6 +214,57 @@ def test_deep_tica_training_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(card.project_data(x), host.project_data(x), atol=1e-4)
 
 
+def _autoencoder_config(**architecture):
+    return {
+        "dimension": 2, "features_normalization": "mean_std",
+        "architecture": {"encoder": {"layers": [16, 8], "activation": ["leaky_relu"] * 2,
+                                     **architecture}},
+        "training": {"general": {"num_tries": 2, "batch_size": 256, "max_epochs": 4},
+                     "optimizer": {"name": "Adam", "kwargs": {"lr": 1e-3}},
+                     "kl_annealing": {"type": "sigmoid", "start_epoch": 1,
+                                      "n_epochs_anneal": 2}},
+    }
+
+
+@pytest.mark.parametrize("cv,batchnorm", [("ae", False), ("ae", True), ("vae", False)])
+def test_autoencoder_training_on_the_card_matches_the_cpu(cuda, monkeypatch, cv,
+                                                          batchnorm):
+    """The same seeded AE / VAE training (2 tries, 4 epochs, the VAE through
+    its KL annealing) on the card and on the CPU: the same initial
+    parameters and batches, and the VAE's noise shared (one seeded draw per
+    call, the same on both devices); with batchnorm, the fold on the card
+    too."""
+    from deep_cartograph_torch.cv import cv_calculators_map
+    from deep_cartograph_torch.models import networks
+
+    draws = []
+
+    def shared_noise(shape, generators):
+        gen = torch.Generator().manual_seed(len(draws))
+        draws.append(shape)
+        return torch.randn(tuple(shape), generator=gen).to(generators[0].device)
+
+    monkeypatch.setattr(networks, "reparam_noise", shared_noise)
+    config = _autoencoder_config(batchnorm=[batchnorm, batchnorm])
+    x = _toy_features()
+    runs = []
+    for device in ("cuda", "cpu"):
+        draws.clear()
+        calc = cv_calculators_map[cv](config, device=device)
+        calc._set_training_data(x, None, [f"f{i}" for i in range(x.shape[1])])
+        assert calc.train()
+        calc.normalize_cv()
+        runs.append(calc)
+    card, host = runs
+    assert not any(card.architecture["encoder_options"]["batchnorm"])
+    for (_, a), (_, b) in zip(card.try_results, host.try_results):
+        for key in a.metrics:
+            if key.endswith("loss"):
+                np.testing.assert_allclose(a.metrics[key], b.metrics[key], rtol=1e-4,
+                                           err_msg=key)
+    np.testing.assert_allclose(card.project_data(x), host.project_data(x), atol=1e-4)
+
+
 def _align_signs(a, b):
     return a * np.sign(np.sum(a * b, axis=0))
 
@@ -303,7 +354,7 @@ def _ca_system(folder, n_atoms=12, n_frames=400, seed=0):
     return pdb, dcd, coords
 
 
-@pytest.mark.parametrize("cv", ["tica", "deep_tica"])
+@pytest.mark.parametrize("cv", ["tica", "deep_tica", "ae", "vae"])
 def test_from_model_zip_on_the_card_matches_project_data(cuda, tmp_path, cv):
     """A CV trained on the card from a colvars file, saved, and served from
     the DCD by FramesToCV.from_model_zip (K1) on the card, against the

@@ -272,8 +272,10 @@ def test_lag_pairs_stay_inside_each_trajectory():
 
 
 def test_batchnorm_and_colvars_are_not_ported_yet(ca_system, tmp_path):
-    """Batchnorm is still not ported; the colvars reader now is: the
-    calculator reads the file it is given (time column dropped)."""
+    """The colvars reader: the calculator reads the file it is given (time
+    column dropped). Batchnorm now trains and is folded into the dense
+    layers of the deployed net (tests/test_torch_autoencoders.py holds the
+    fold to the JAX package's)."""
     x = np.random.default_rng(0).normal(size=(40, 3)).astype(np.float32)
     path = _colvars(str(tmp_path / "colvars.dat"), x, ["a", "b", "c"])
     calc = DeepTICACalculator(configuration=_config(), device="cpu")
@@ -286,8 +288,9 @@ def test_batchnorm_and_colvars_are_not_ported_yet(ca_system, tmp_path):
     calc = DeepTICACalculator(configuration=cfg, device="cpu")
     calc._set_training_data(np.random.default_rng(0).normal(size=(40, 3)), None,
                             ["a", "b", "c"])
-    with pytest.raises(NotImplementedError, match="fold_feedforward_batchnorm"):
-        calc.train()
+    assert calc.train()
+    assert calc.architecture["encoder_options"]["batchnorm"] == [False, False]
+    assert not any("bn_" in key for key in calc.params)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """model.zip between the port and the JAX package, on the CPU: a zip that
 either package writes loads in the other and projects the same (1e-5),
+for every ported family (PCA, TICA, HTICA, deep-TICA, AE, VAE),
 with the same file list; the msgpack parameters against Flax's bytes; the
 TorchScript weights against the JAX package's export; serving a zip with
 FramesToCV.from_model_zip against the JAX package's (1e-5 on the same
@@ -34,7 +35,7 @@ from tests.test_golden import GOLDEN_DIR, _feature_labels, _fixture_system
 torch.set_num_threads(2)
 
 ZIP_TOL = 1e-5
-CVS = ("pca", "tica", "htica", "deep_tica")
+CVS = ("pca", "tica", "htica", "deep_tica", "ae", "vae")
 
 
 def _config():
@@ -135,7 +136,7 @@ def test_torchscript_weights_match_jax_export(trained, tmp_path):
     calc = runs["deep_tica"]["port"][0]
     ours = str(tmp_path / "port.pt")
     theirs = str(tmp_path / "jax.pt")
-    calc.save_weights(ours)
+    calc.save_weights(ours, device="cpu")
     jax_save_torchscript(copy.deepcopy(calc.architecture), params_to_flax(calc.params),
                          theirs)
     x = torch.as_tensor(np.random.default_rng(0).normal(1.0, 0.3, (50, 8)),
@@ -145,6 +146,27 @@ def test_torchscript_weights_match_jax_export(trained, tmp_path):
         b = torch.jit.load(theirs)(x).numpy()
     np.testing.assert_allclose(a, b, atol=1e-6)
     np.testing.assert_allclose(a, calc.project_data(x), atol=1e-6)
+
+
+@pytest.mark.parametrize("cv", ["ae", "vae"])
+def test_autoencoder_torchscript_weights_match_jax_export(trained, tmp_path, cv):
+    """The port's AE encoder and VAE mean, traced, against the JAX package's
+    export of the same weights (1e-6) and the calculator (1e-5)."""
+    _, _, runs, _ = trained
+    calc = runs[cv]["port"][0]
+    ours = str(tmp_path / "port.pt")
+    theirs = str(tmp_path / "jax.pt")
+    calc.save_weights(ours, device="cpu")
+    jax_save_torchscript(copy.deepcopy(calc.architecture), params_to_flax(calc.params),
+                         theirs)
+    x = torch.as_tensor(np.random.default_rng(0).normal(1.0, 0.3, (50, 8)),
+                        dtype=torch.float32)
+    with torch.no_grad():
+        a = torch.jit.load(ours)(x).numpy()
+        b = torch.jit.load(theirs)(x).numpy()
+    assert a.shape == (50, 2)
+    np.testing.assert_allclose(a, b, atol=1e-6)
+    np.testing.assert_allclose(a, calc.project_data(x), atol=ZIP_TOL)
 
 
 def test_torchscript_only_zip_projects(trained, tmp_path):
@@ -162,7 +184,7 @@ def test_torchscript_only_zip_projects(trained, tmp_path):
                                atol=ZIP_TOL)
 
 
-@pytest.mark.parametrize("cv", ["tica", "deep_tica"])
+@pytest.mark.parametrize("cv", ["tica", "deep_tica", "ae", "vae"])
 @pytest.mark.parametrize("shifted", [False, True])
 def test_from_model_zip_matches_jax(trained, tmp_path, cv, shifted):
     """Serving a zip from the DCD, on the training topology and on one
@@ -235,6 +257,24 @@ def test_deep_tica_sensitivity_matches_jax(trained, tmp_path):
     jcalc.ref_topology_path = None
     jcalc.sensitivity_analysis()
     ours = _read_sensitivity(os.path.join(tmp, "port", "deep_tica", "sensitivity_analysis"))
+    theirs = _read_sensitivity(str(tmp_path / "jax_sens"))
+    assert list(ours) == list(theirs) == _feature_labels()
+    for name in ours:
+        assert abs(ours[name] - theirs[name]) <= ZIP_TOL * max(1.0, abs(theirs[name]))
+
+
+@pytest.mark.parametrize("cv", ["ae", "vae"])
+def test_autoencoder_sensitivity_matches_jax(trained, tmp_path, cv):
+    """As for deep-TICA: the port's sensitivity of the AE encoder and the
+    VAE mean against the JAX package's on the same trained net."""
+    _, _, runs, tmp = trained
+    calc, zip_path, _ = runs[cv]["port"]
+    jcalc = JaxCVCalculator.load(zip_path, str(tmp_path / "jax"))
+    jcalc.training_data = calc.training_data.numpy()
+    jcalc.sensitivity_output_folder = str(tmp_path / "jax_sens")
+    jcalc.ref_topology_path = None
+    jcalc.sensitivity_analysis()
+    ours = _read_sensitivity(os.path.join(tmp, "port", cv, "sensitivity_analysis"))
     theirs = _read_sensitivity(str(tmp_path / "jax_sens"))
     assert list(ours) == list(theirs) == _feature_labels()
     for name in ours:

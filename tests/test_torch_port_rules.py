@@ -1,7 +1,7 @@
 """Rules of the PyTorch port: it never loads JAX, the JAX package, nor the
 libraries the card machine lacks (pandas, pydantic, yaml, msgpack, flax,
-matplotlib), and it never falls back to the CPU when the caller did not ask
-for it."""
+matplotlib, sklearn), and it never falls back to the CPU when the caller
+did not ask for it."""
 
 import os
 import re
@@ -38,7 +38,7 @@ for name in names:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "deep_cartograph_tpu", "pandas", "pydantic", "yaml",
-    "msgpack", "matplotlib"))
+    "msgpack", "matplotlib", "sklearn"))
 print(len(names), loaded)
 """
 
@@ -62,7 +62,7 @@ def _package_files():
 
 FORBIDDEN_IMPORT = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|flax|deep_cartograph_tpu|pandas|pydantic|yaml|"
-    r"msgpack|matplotlib)\b"
+    r"msgpack|matplotlib|sklearn)\b"
 )
 
 
@@ -155,7 +155,7 @@ def test_cv_surface_entry_points_raise_without_cuda(no_cuda, tmp_path, ca_system
     x = np.random.default_rng(0).normal(2.0, 0.3, size=(30, 3)).astype(np.float32)
     write_colvars(colvars, x, ["dist-@CA_1-@CA_5", "dist-@CA_2-@CA_9",
                                "dist-@CA_3-@CA_11"])
-    for name in ("pca", "tica", "htica", "deep_tica"):
+    for name in ("pca", "tica", "htica", "deep_tica", "ae", "vae"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cv_calculators_map[name]({"dimension": 2}, str(tmp_path))
         calc = cv_calculators_map[name]({"dimension": 1, "num_subspaces": 1,
@@ -178,9 +178,52 @@ def test_cv_surface_entry_points_raise_without_cuda(no_cuda, tmp_path, ca_system
     served = FramesToCV.from_model_zip(model, ca_system.pdb_path, str(tmp_path / "s"),
                                        device="cpu")
     assert served.device.type == "cpu"
-    for name in ("ae", "vae", "umap"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item"):
-            cv_calculators_map[name]({}, str(tmp_path))
+    with pytest.raises(NotImplementedError, match="Queue 1 item"):
+        cv_calculators_map["umap"]({}, str(tmp_path))
+
+
+def test_autoencoder_and_plumed_entry_points_raise_without_cuda(no_cuda, tmp_path,
+                                                                 ca_system):
+    """The AE and VAE calculators, the serving of their projections, the
+    TorchScript trace, the waypoint alignment and write_plumed_files resolve
+    device=None to CUDA."""
+    from deep_cartograph_torch.cv import cv_calculators_map
+    from deep_cartograph_torch.geom.structure import create_rmsd_waypoint_reference
+    from deep_cartograph_torch.models.torch_export import save_torchscript
+
+    x = np.random.default_rng(0).normal(2.0, 0.3, size=(40, 2)).astype(np.float32)
+    labels = ["dist-@CA_1-@CA_5", "dist-@CA_2-@CA_9"]
+    config = {"dimension": 1, "architecture": {"encoder": {"layers": [3]}},
+              "training": {"general": {"max_epochs": 2, "num_tries": 1, "batch_size": 8}}}
+    trained = {}
+    for name in ("ae", "vae"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cv_calculators_map[name](config)
+        calc = cv_calculators_map[name](config, str(tmp_path / name), device="cpu")
+        calc._set_training_data(x, None, labels)
+        calc.ref_topology_path = ca_system.pdb_path
+        assert calc.train()
+        calc.normalize_cv()
+        trained[name] = calc
+    top = Topology.from_pdb(ca_system.pdb_path)
+    for call in (
+        lambda: FramesToCV(trained["ae"].projection(), top, labels),
+        lambda: FramesToCV(trained["vae"].projection(), top, labels),
+        lambda: trained["ae"].write_plumed_files(ca_system.pdb_path, str(tmp_path)),
+        lambda: trained["vae"].save_weights(str(tmp_path / "w.pt")),
+        lambda: save_torchscript(trained["ae"].projection(), 2, str(tmp_path / "w.pt")),
+        lambda: create_rmsd_waypoint_reference(
+            [ca_system.pdb_path] * 2, ca_system.pdb_path, str(tmp_path / "ref.pdb")),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # asking for the host is the one way to run there
+    assert FramesToCV(trained["ae"].projection(), top, labels, device="cpu").device.type \
+        == "cpu"
+    (tmp_path / "plumed").mkdir()
+    trained["vae"].write_plumed_files(ca_system.pdb_path, str(tmp_path / "plumed"),
+                                      device="cpu")
+    assert sorted(os.listdir(tmp_path / "plumed")) == ["plumed_vae_unbiased.zip"]
 
 
 def test_kernel_wrapper_takes_its_plain_version_only_for_cpu_tensors():
