@@ -509,16 +509,15 @@ class CVCalculator:
         topology: Optional[str],
         output_folder: str,
         waypoint_structures: Optional[List[str]] = None,
-        device: DeviceLike = None,
     ) -> None:
         """plumed_{cv}_unbiased.zip (an input that computes the CV along a
         run) and, with a bias configuration, plumed_{cv}_biased.zip (one
         that biases the run along it) in `output_folder`, for `topology`:
         the model's features translated onto it, the topology, the fit
         template for coordinate features, a deep CV's TorchScript weights
-        (traced on `device`; None means CUDA) and, with `add_rmsd_restraint`
+        (traced on the calculator's device) and, with `add_rmsd_restraint`
         and waypoint structures, the RMSD restraint's reference (waypoints
-        aligned on `device`)."""
+        aligned on the calculator's device)."""
         from deep_cartograph_torch.features.translator import Translator
         from deep_cartograph_torch.geom.structure import (
             create_plumed_rmsd_template,
@@ -529,7 +528,6 @@ class CVCalculator:
             ComputeEnhancedSamplingBuilder,
         )
 
-        device = resolve_device(device)
         if topology is None:
             logger.warning("Topology not provided. Skipping PLUMED files creation.")
             return
@@ -559,7 +557,7 @@ class CVCalculator:
 
         if self.get_cv_type() == "non-linear":
             self.weights_path = os.path.join(output_folder, f"{self.cv_name}_weights.pt")
-            self.save_weights(self.weights_path, device)
+            self.save_weights(self.weights_path)
             plumed_files.append(self.weights_path)
 
         plumed_input_path = os.path.join(output_folder, f"plumed_input_{self.cv_name}.dat")
@@ -585,7 +583,7 @@ class CVCalculator:
                                                        "rmsd_restraint_reference.pdb")
                     create_rmsd_waypoint_reference(
                         waypoint_structures, plumed_topology_path, rmsd_reference_path,
-                        self.bias.get("align_waypoint_structures", True), device=device)
+                        self.bias.get("align_waypoint_structures", True), device=self.device)
                     plumed_files.append(rmsd_reference_path)
                 else:
                     logger.warning("No waypoint structures provided for RMSD restraint "

@@ -518,11 +518,11 @@ class NonLinear(CVCalculator):
     # ------------------------------------------------------------------
     # Persistence
     # ------------------------------------------------------------------
-    def save_weights(self, weights_path: str, device: DeviceLike = None) -> None:
-        """TorchScript weights, for PLUMED, traced on `device` (None means
-        CUDA)."""
+    def save_weights(self, weights_path: str) -> None:
+        """TorchScript weights, for PLUMED, traced on the calculator's
+        device."""
         check_exportable(self.architecture)
-        save_torchscript(self.projection(), self.num_features, weights_path, device)
+        save_torchscript(self.projection(), self.num_features, weights_path, self.device)
 
     def save_model(self) -> None:
         super().save_model()
@@ -530,7 +530,7 @@ class NonLinear(CVCalculator):
         save_params(self.params, os.path.join(m, "flax_params.msgpack"))
         with open(os.path.join(m, "architecture.json"), "w") as fh:
             json.dump(self.architecture, fh)
-        self.save_weights(os.path.join(m, "cv_weights.pt"), self.device)
+        self.save_weights(os.path.join(m, "cv_weights.pt"))
         self._zip_and_clean_model()
 
     def _load_from_folder(self, folder_path: str) -> None:

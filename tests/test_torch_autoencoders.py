@@ -406,7 +406,7 @@ def test_decoder_coupling_exports_alike(mode, last, golden_features, tmp_path):
     lo, hi = (0.0, 1.0) if mode == "min_max_range1" else (-1.0, 1.0)
     assert float(x_hat.min()) >= lo and float(x_hat.max()) <= hi
     path = str(tmp_path / "weights.pt")
-    calc.save_weights(path, device="cpu")
+    calc.save_weights(path)
     with torch.no_grad():
         out = torch.jit.load(path)(torch.from_numpy(golden_features)).numpy()
     np.testing.assert_allclose(out, calc.project_data(golden_features), atol=1e-5)
@@ -472,7 +472,7 @@ def test_batchnorm_folded_matches_jax(cv, golden_features, tmp_path, monkeypatch
         np.testing.assert_allclose(folded[prefix + key].numpy(), value.numpy(),
                                    atol=FOLD_TOL, err_msg=key)
     path = str(tmp_path / "weights.pt")
-    calc.save_weights(path, device="cpu")
+    calc.save_weights(path)
     with torch.no_grad():
         out = torch.jit.load(path)(torch.from_numpy(golden_features)).numpy()
     np.testing.assert_allclose(out, got, atol=1e-5)
@@ -488,7 +488,7 @@ def test_unfolded_batchnorm_is_not_exported(golden_features, tmp_path):
     arch["encoder_options"]["batchnorm"][0] = True
     calc.architecture = arch
     with pytest.raises(ValueError, match="unfolded batchnorm"):
-        calc.save_weights(str(tmp_path / "w.pt"), device="cpu")
+        calc.save_weights(str(tmp_path / "w.pt"))
 
 
 def test_feedforward_jax_module_names_carry_over():

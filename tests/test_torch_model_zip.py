@@ -136,7 +136,7 @@ def test_torchscript_weights_match_jax_export(trained, tmp_path):
     calc = runs["deep_tica"]["port"][0]
     ours = str(tmp_path / "port.pt")
     theirs = str(tmp_path / "jax.pt")
-    calc.save_weights(ours, device="cpu")
+    calc.save_weights(ours)
     jax_save_torchscript(copy.deepcopy(calc.architecture), params_to_flax(calc.params),
                          theirs)
     x = torch.as_tensor(np.random.default_rng(0).normal(1.0, 0.3, (50, 8)),
@@ -156,7 +156,7 @@ def test_autoencoder_torchscript_weights_match_jax_export(trained, tmp_path, cv)
     calc = runs[cv]["port"][0]
     ours = str(tmp_path / "port.pt")
     theirs = str(tmp_path / "jax.pt")
-    calc.save_weights(ours, device="cpu")
+    calc.save_weights(ours)
     jax_save_torchscript(copy.deepcopy(calc.architecture), params_to_flax(calc.params),
                          theirs)
     x = torch.as_tensor(np.random.default_rng(0).normal(1.0, 0.3, (50, 8)),

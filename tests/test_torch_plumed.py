@@ -168,10 +168,7 @@ def _export(pkg, source, folder, topology, bias=None, waypoints=None):
     else:
         calc = source
     calc.bias = {} if bias is None else bias
-    if pkg == "port":
-        calc.write_plumed_files(topology, folder, waypoints, device="cpu")
-    else:
-        calc.write_plumed_files(topology, folder, waypoints)
+    calc.write_plumed_files(topology, folder, waypoints)
     written = {}
     for name in sorted(os.listdir(folder)):
         if name.endswith(".zip"):

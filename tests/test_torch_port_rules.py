@@ -184,10 +184,12 @@ def test_cv_surface_entry_points_raise_without_cuda(no_cuda, tmp_path, ca_system
 
 def test_autoencoder_and_plumed_entry_points_raise_without_cuda(no_cuda, tmp_path,
                                                                  ca_system):
-    """The AE and VAE calculators, the serving of their projections, the
-    TorchScript trace, the waypoint alignment and write_plumed_files resolve
-    device=None to CUDA."""
+    """The AE and VAE calculators (built or loaded), the serving of their
+    projections, the TorchScript trace and the waypoint alignment resolve
+    device=None to CUDA; write_plumed_files and save_weights trace on the
+    calculator's own device."""
     from deep_cartograph_torch.cv import cv_calculators_map
+    from deep_cartograph_torch.cv.base import CVCalculator
     from deep_cartograph_torch.geom.structure import create_rmsd_waypoint_reference
     from deep_cartograph_torch.models.torch_export import save_torchscript
 
@@ -205,12 +207,14 @@ def test_autoencoder_and_plumed_entry_points_raise_without_cuda(no_cuda, tmp_pat
         assert calc.train()
         calc.normalize_cv()
         trained[name] = calc
+    trained["ae"].create_output_folders()
+    trained["ae"].save_model()
     top = Topology.from_pdb(ca_system.pdb_path)
     for call in (
+        lambda: CVCalculator.load(str(trained["ae"].output_path / "model.zip"),
+                                  str(tmp_path / "l")),
         lambda: FramesToCV(trained["ae"].projection(), top, labels),
         lambda: FramesToCV(trained["vae"].projection(), top, labels),
-        lambda: trained["ae"].write_plumed_files(ca_system.pdb_path, str(tmp_path)),
-        lambda: trained["vae"].save_weights(str(tmp_path / "w.pt")),
         lambda: save_torchscript(trained["ae"].projection(), 2, str(tmp_path / "w.pt")),
         lambda: create_rmsd_waypoint_reference(
             [ca_system.pdb_path] * 2, ca_system.pdb_path, str(tmp_path / "ref.pdb")),
@@ -221,9 +225,16 @@ def test_autoencoder_and_plumed_entry_points_raise_without_cuda(no_cuda, tmp_pat
     assert FramesToCV(trained["ae"].projection(), top, labels, device="cpu").device.type \
         == "cpu"
     (tmp_path / "plumed").mkdir()
-    trained["vae"].write_plumed_files(ca_system.pdb_path, str(tmp_path / "plumed"),
-                                      device="cpu")
+    trained["vae"].write_plumed_files(ca_system.pdb_path, str(tmp_path / "plumed"))
     assert sorted(os.listdir(tmp_path / "plumed")) == ["plumed_vae_unbiased.zip"]
+    # a calculator on the card traces its weights there
+    trained["vae"].device = torch.device("cuda")
+    for call in (
+        lambda: trained["vae"].write_plumed_files(ca_system.pdb_path, str(tmp_path)),
+        lambda: trained["vae"].save_weights(str(tmp_path / "w.pt")),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
 
 
 def test_kernel_wrapper_takes_its_plain_version_only_for_cpu_tensors():
