@@ -63,10 +63,26 @@ Phases, each failing the run (non-zero exit) if it fails:
    chain evaluated on the feature matrix, both against the projection; the
    AE on the card against the CPU on 5,000 frames for 2 epochs, with
    leaky_relu and again with tanh.
+7. Trajectory inputs and clustering (traj_cluster) on the main path's data,
+   the kernels' counters zeroed before and read after
+   (`inputs_and_clustering`): the 100,000 frames written as XTC by the
+   port's codec, counted, decoded and featurized (K1) and held to numpy, and
+   split into three trajectories of uneven length featurized through shared
+   chunks, equal to the single one; the main path's projected deep-TICA
+   values (100,000 x 2) clustered with the schema's settings: the k-means
+   scan (k = 3..10, n_init 20; host reads of one Lloyd run by line of
+   code), its labels warm-started on the CPU from the card's centroids,
+   find_centroids, the scores (held to float64 numpy on a 10,000-row cut),
+   HDBSCAN (min_cluster_size 5, min_samples 3, eom; the card against the
+   port's CPU path on a 20,000-row cut; at full depth with its core
+   distances and Prim's tree timed), the complete-linkage hierarchical scan
+   on a 5,000-row cut, and the XTC trajectory's projection assigned to its
+   nearest clustered frames (100,000 against 100,000; 1,000 rows held to
+   float64 numpy).
 
 Prints the nvidia-smi line, the [smoke] lines (times beside the card's name
 and power limit), then one JSON line {"kernels": [...]} (each kernel's
-launches summed over the main path and phases 4 and 6, and by path), then,
+launches summed over the main path and phases 4, 6 and 7, and by path), then,
 as the last line, {"ok": true, "device": {...}}. The total time is the last
 [smoke] line. The phases run one after another in this process.
 Imports nothing of JAX.
@@ -185,6 +201,27 @@ BN_EPOCHS = 2             # the batchnorm AE: the fold, not the training, is che
 BN_FOLD_TOL = 1e-5        # folded net against the batchnorm net on all training rows
 TORCHSCRIPT_TOL = 1e-5    # a PLUMED *_weights.pt against the calculator's projection
 COMBINE_TOL = 1e-4        # a linear PLUMED input's COMBINE chain against the projection
+
+# Phase 7: the trajectory inputs and the clustering of traj_cluster, with the
+# schema's settings (config/schemas.py TrajClusterSchema).
+TRAJ_SPLITS = (33_333, 74_444)   # three XTC trajectories of uneven length
+XTC_CHECK_STRIDE = 50            # XTC features held to numpy on every 50th frame
+XTC_FEATURES_TOL = 1e-4          # nm / sin, cos against float64 numpy
+KMEANS_SETTINGS = {"algorithm": "kmeans", "n_init": 20, "search_interval": [3, 10]}
+HIERARCHICAL_SETTINGS = {"algorithm": "hierarchical", "linkage": "complete",
+                         "search_interval": [3, 10]}
+HDBSCAN_SETTINGS = {"min_cluster_size": 5, "min_samples": 3,
+                    "cluster_selection_method": "eom"}
+SCORES_CUT = 10_000        # rows held to a float64 numpy computation of the scores
+HDBSCAN_CUT = 20_000       # rows of the card-against-CPU HDBSCAN
+HIERARCHICAL_CUT = 5_000   # rows of the hierarchical scan (8 complete-linkage trees)
+NN_SAMPLE = 1_000          # nearest-neighbour rows checked against numpy
+SCORES_RTOL = 1e-4         # float32 scores against float64
+HDBSCAN_TOL = 1e-9         # float64 probabilities and centroids, card against CPU
+# A float32 d2 expansion |a|^2 - 2 a.b + |b|^2 rounds each term: a reported
+# nearest point may be farther than the float64 nearest by this many float32
+# ulps of |a|^2 + |b|^2, and no more.
+NN_ULPS = 4
 
 
 def log(msg: str) -> None:
@@ -496,14 +533,16 @@ def numpy_fes_1d(x: np.ndarray, axis: np.ndarray, kt: float) -> np.ndarray:
     return fes - fes.min()
 
 
-def synced(fn):
+def synced(fn, device="cuda"):
     """(fn(), host seconds) with the device drained before and after."""
     import torch
 
-    torch.cuda.synchronize()
+    if device == "cuda":
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    if device == "cuda":
+        torch.cuda.synchronize()
     return out, time.perf_counter() - t0
 
 
@@ -649,6 +688,7 @@ def main_path(coords: np.ndarray, tmp: str, stats) -> dict:
         else:
             check(s.launches > 0, f"{s.name} was launched on the main path")
     context = {"features": features, "kept_features": kept_features, "kept": kept,
+               "cv": cv,
                "pdb_path": pdb_path, "dcd_path": dcd_path, "frames": frames}
     return result, calc, context
 
@@ -1382,6 +1422,265 @@ def autoencoders(calc_deep, linear: dict, ctx: dict, tmp: str, stats, card: str,
     return out
 
 
+def numpy_scores(x: np.ndarray, labels: np.ndarray):
+    """Calinski-Harabasz, Davies-Bouldin and the silhouette in float64 numpy
+    (the formulas of clustering.py; labels 0..k-1, every cluster non-empty)."""
+    x = x.astype(np.float64)
+    n, k = len(x), int(labels.max()) + 1
+    counts = np.bincount(labels, minlength=k).astype(np.float64)
+    one_hot = np.eye(k)[labels]
+    centers = one_hot.T @ x / counts[:, None]
+    between = (counts * ((centers - x.mean(0)) ** 2).sum(1)).sum()
+    within = ((x - centers[labels]) ** 2).sum()
+    ch = (between / (k - 1)) / (within / (n - k))
+    s = one_hot.T @ np.sqrt(((x - centers[labels]) ** 2).sum(1)) / counts
+    center_d = np.sqrt(((centers[:, None] - centers[None]) ** 2).sum(-1))
+    np.fill_diagonal(center_d, np.inf)
+    db = ((s[:, None] + s[None]) / center_d).max(1).mean()
+    sums = np.empty((n, k))
+    for start in range(0, n, 500):
+        d = np.sqrt(((x[start:start + 500, None] - x[None]) ** 2).sum(-1))
+        sums[start:start + 500] = d @ one_hot
+    a = sums[np.arange(n), labels] / np.maximum(counts[labels] - 1, 1)
+    other = sums / counts
+    other[np.arange(n), labels] = np.inf
+    b = other.min(1)
+    sil = np.where(counts[labels] > 1, (b - a) / np.maximum(a, b), 0.0)
+    return ch, db, sil.mean()
+
+
+def trajectory_inputs(coords: np.ndarray, ctx: dict, tmp: str, card: str,
+                      device="cuda") -> dict:
+    """Phase 7 (a): the main path's frames as XTC through the port's codec,
+    counted, decoded and featurized (K1), once as one trajectory and once
+    as three of uneven length through shared chunks."""
+    from deep_cartograph_torch.geom.engine import Featurizer
+    from deep_cartograph_torch.io.topology import Topology
+    from deep_cartograph_torch.io.traj import iter_frame_chunks
+    from deep_cartograph_torch.io.xtc import count_xtc_frames, read_xtc, write_xtc
+
+    out: dict = {}
+    n_frames = coords.shape[0]
+    xtc = os.path.join(tmp, "traj.xtc")
+    t0 = time.perf_counter()
+    write_xtc(xtc, coords)
+    out["xtc_write_s"] = time.perf_counter() - t0
+    out["xtc_bytes"] = os.path.getsize(xtc)
+    t0 = time.perf_counter()
+    counted = count_xtc_frames(xtc)
+    out["xtc_count_s"] = time.perf_counter() - t0
+    check(counted == n_frames, f"count_xtc_frames: {counted} frames")
+    t0 = time.perf_counter()
+    decoded = sum(block.shape[0] for block in iter_frame_chunks(xtc, CHUNK))
+    out["xtc_decode_s"] = time.perf_counter() - t0
+    check(decoded == n_frames, f"iter_frame_chunks decoded {decoded} frames")
+
+    parts = np.split(coords, list(TRAJ_SPLITS))
+    paths = [os.path.join(tmp, f"part{i}.xtc") for i in range(len(parts))]
+    for path, part in zip(paths, parts):
+        write_xtc(path, part)
+
+    labels = make_labels(N_ATOMS)
+    featurizer = Featurizer(Topology.from_pdb(ctx["pdb_path"]), labels, device=device)
+    features, out["xtc_featurize_s"] = synced(
+        lambda: featurizer.featurize_trajectory(xtc, frame_chunk=CHUNK), device)
+    split, out["xtc_featurize_trajectories_s"] = synced(
+        lambda: featurizer.featurize_trajectories(paths, frame_chunk=CHUNK), device)
+
+    check(features.shape == (n_frames, len(labels)), f"XTC features {features.shape}")
+    # XTC keeps 0.01 Angstrom: two consecutive atoms of the synthetic helix
+    # (0.73 Angstrom apart at rest) can land on the same grid point, and a
+    # dihedral over them is NaN, in numpy as in the port.
+    out["xtc_nan_features"] = int(np.isnan(features).sum())
+    rows = np.arange(0, n_frames, XTC_CHECK_STRIDE)
+    ref = numpy_features(read_xtc(xtc)[rows], labels)
+    check(np.array_equal(np.isnan(features[rows]), np.isnan(ref)),
+          "XTC features are NaN where numpy's are")
+    out["xtc_features_err_vs_numpy"] = float(np.nanmax(np.abs(features[rows] - ref)))
+    check(out["xtc_features_err_vs_numpy"] <= XTC_FEATURES_TOL,
+          f"XTC features match numpy within {XTC_FEATURES_TOL}")
+    check([len(p) for p in split] == [len(p) for p in parts]
+          and np.array_equal(np.concatenate(split), features, equal_nan=True),
+          "three trajectories through shared chunks equal the single one, in order")
+    out["xtc_features"] = features
+    log(f"[{card}] XTC ({n_frames} frames, {out['xtc_bytes'] / 1e6:.1f} MB): write "
+        f"{out['xtc_write_s']:.3f} s, count {out['xtc_count_s'] * 1e3:.1f} ms, decode "
+        f"{n_frames / out['xtc_decode_s']:.0f} frames/s ({out['xtc_decode_s']:.3f} s), "
+        f"featurize {n_frames / out['xtc_featurize_s']:.0f} frames/s "
+        f"({out['xtc_featurize_s']:.3f} s); as {len(paths)} trajectories "
+        f"({', '.join(str(len(p)) for p in parts)} frames) "
+        f"{out['xtc_featurize_trajectories_s']:.3f} s, equal to the single one; "
+        f"features within {out['xtc_features_err_vs_numpy']:.3g} of numpy; "
+        f"{out['xtc_nan_features']} NaN dihedral values (coincident atoms)")
+    return out
+
+
+def clustering(calc, ctx: dict, xtc_features: np.ndarray, card: str,
+               device="cuda") -> dict:
+    """Phase 7 (b): traj_cluster's clustering of the main path's projected
+    deep-TICA values (n x 2, float32): the k-means scan, the scores,
+    HDBSCAN, the hierarchical scan on a cut, the centroid marking and the
+    nearest-neighbour assignment of the XTC trajectory's projection."""
+    import torch
+
+    from deep_cartograph_torch.cluster import clustering as cl
+
+    cv = np.ascontiguousarray(ctx["cv"], dtype=np.float32)
+    n = cv.shape[0]
+    out: dict = {}
+
+    # k-means over the search interval, n_init restarts batched
+    (labels, centroids), out["kmeans_scan_s"] = synced(
+        lambda: cl.optimize_clustering(cv, KMEANS_SETTINGS, device=device), device)
+    k = len(centroids)
+    out["kmeans_k"] = k
+    syncs = count_syncs(lambda: cl.kmeans_clustering(cv, k, KMEANS_SETTINGS["n_init"],
+                                                     device=device)) \
+        if device == "cuda" else {}
+    lloyd = {line: c for line, c in syncs.items() if "clustering.py" in line}
+    out["kmeans_host_syncs"] = dict(syncs)
+    out["kmeans_lloyd_host_reads"] = max(lloyd.values(), default=0)
+    # The labels are the card's centroids' nearest assignment, in float32 numpy.
+    d2 = ((cv[:, None, :] - centroids[None, :, :]) ** 2).sum(-1)
+    check(np.array_equal(d2.argmin(1), labels),
+          "the card's k-means labels are its centroids' nearest assignment")
+    # Lloyd stops once every centre moves by at most 1e-3 (squared shift <=
+    # 1e-6), which is not a fixed point: a warm start from the card's
+    # centroids may go on moving boundary points. The CPU's warm start must
+    # equal the card's, and its change to the card's labels is recorded.
+    back, back_centers = cl.kmeans_clustering(cv, k, 1, initial_centroids=centroids,
+                                              device="cpu")
+    card_back, card_centers = cl.kmeans_clustering(cv, k, 1, initial_centroids=centroids,
+                                                   device=device)
+    out["kmeans_cpu_warm_start_changed"] = int((back != labels).sum())
+    out["kmeans_warm_start_card_cpu_diff"] = int((back != card_back).sum())
+    out["kmeans_warm_start_centroid_err"] = float(np.abs(back_centers - card_centers).max())
+    check(out["kmeans_warm_start_card_cpu_diff"] == 0
+          and out["kmeans_warm_start_centroid_err"] <= 1e-5,
+          "a warm start from the card's centroids gives the same labels on the CPU "
+          "as on the card, centroids within 1e-5")
+    check(labels.shape == (n,) and centroids.shape == (k, 2)
+          and 3 <= k <= 10 and np.isfinite(centroids).all(), f"k-means scan: k={k}")
+    mask, out["find_centroids_s"] = synced(
+        lambda: cl.find_centroids(cv, centroids, device=device), device)
+    check(0 < mask.sum() <= k, f"find_centroids marked {mask.sum()} samples")
+
+    # the scores at full depth, and on a cut against float64 numpy
+    scores, out["scores_s"] = synced(
+        lambda: cl.clustering_scores(cv, labels, device=device), device)
+    out["scores"] = scores
+    cut = np.arange(0, n, max(1, n // SCORES_CUT))[:SCORES_CUT]
+    _, cut_labels = np.unique(labels[cut], return_inverse=True)
+    got = cl.clustering_scores(cv[cut], cut_labels, device=device)
+    want = numpy_scores(cv[cut], cut_labels)
+    out["scores_cut_max_rel_err"] = float(max(abs(g - w) / abs(w) for g, w in zip(got, want)))
+    check(out["scores_cut_max_rel_err"] <= SCORES_RTOL,
+          f"scores on {len(cut)} rows match float64 numpy within rel {SCORES_RTOL}")
+
+    # HDBSCAN: the card against the port's CPU path on a cut, then full depth
+    hcut = np.arange(0, n, max(1, n // HDBSCAN_CUT))[:HDBSCAN_CUT]
+    (h_labels, h_centroids), out["hdbscan_cut_s"] = synced(
+        lambda: cl.hdbscan_clustering(cv[hcut], **HDBSCAN_SETTINGS, device=device), device)
+    t0 = time.perf_counter()
+    cpu_labels, cpu_probs = cl.hdbscan_fit(cv[hcut], **HDBSCAN_SETTINGS, device="cpu")
+    out["hdbscan_cut_cpu_s"] = time.perf_counter() - t0
+    card_labels, card_probs = cl.hdbscan_fit(cv[hcut], **HDBSCAN_SETTINGS, device=device)
+    cpu_centroids = cl.weighted_centroids(cv[hcut], cpu_labels, cpu_probs)
+    check(np.array_equal(h_labels, cpu_labels) and np.array_equal(card_labels, cpu_labels),
+          f"HDBSCAN on {len(hcut)} rows: card labels equal the CPU's")
+    out["hdbscan_cut_prob_err"] = float(np.abs(card_probs - cpu_probs).max())
+    out["hdbscan_cut_centroid_err"] = float(np.abs(h_centroids - cpu_centroids).max()) \
+        if len(cpu_centroids) else 0.0
+    check(max(out["hdbscan_cut_prob_err"], out["hdbscan_cut_centroid_err"]) <= HDBSCAN_TOL,
+          f"HDBSCAN probabilities and centroids within {HDBSCAN_TOL}")
+    out["hdbscan_cut_clusters"] = int(cpu_labels.max()) + 1
+    out["hdbscan_cut_noise"] = int((cpu_labels == -1).sum())
+    data64 = torch.as_tensor(cv.astype(np.float64), device=device)
+    core, out["hdbscan_core_s"] = synced(
+        lambda: cl._core_distances(data64, HDBSCAN_SETTINGS["min_samples"]), device)
+    mst, out["hdbscan_prim_s"] = synced(lambda: cl._prim_mst(data64, core), device)
+    out["hdbscan_prim_steps"] = len(mst[1])
+    (f_labels, f_centroids), out["hdbscan_s"] = synced(
+        lambda: cl.hdbscan_clustering(cv, **HDBSCAN_SETTINGS, device=device), device)
+    out["hdbscan_clusters"] = int(f_labels.max()) + 1
+    out["hdbscan_noise"] = int((f_labels == -1).sum())
+    check(f_labels.shape == (n,) and f_centroids.shape == (out["hdbscan_clusters"], 2)
+          and np.isfinite(f_centroids).all(), "HDBSCAN at full depth")
+
+    # hierarchical (complete linkage) over the search interval, on a cut
+    hier = np.arange(0, n, max(1, n // HIERARCHICAL_CUT))[:HIERARCHICAL_CUT]
+    (hl, hc), out["hierarchical_scan_s"] = synced(
+        lambda: cl.optimize_clustering(cv[hier], HIERARCHICAL_SETTINGS, device=device),
+        device)
+    out["hierarchical_k"] = len(hc)
+    check(hl.shape == (len(hier),) and 3 <= len(hc) <= 10,
+          f"hierarchical scan on {len(hier)} rows: k={len(hc)}")
+
+    # the XTC trajectory's projection assigned to its nearest clustered frame
+    keep = np.isin(make_labels(N_ATOMS), ctx["kept"])
+    new = np.asarray(calc.project_data(xtc_features[:, keep]), dtype=np.float32)
+    finite = np.isfinite(new).all(1)
+    out["nearest_neighbor_nan_rows"] = int((~finite).sum())
+    new = np.ascontiguousarray(new[finite])
+    nearest, out["nearest_neighbor_s"] = synced(
+        lambda: cl.assign_nearest_neighbor(new, cv, device=device), device)
+    rows = np.random.default_rng(SEED).choice(len(new), NN_SAMPLE, replace=False)
+    d2 = ((new[rows, None].astype(np.float64) - cv[None].astype(np.float64)) ** 2).sum(-1)
+    best = d2.argmin(1)
+    excess = d2[np.arange(NN_SAMPLE), nearest[rows]] - d2[np.arange(NN_SAMPLE), best]
+    bound = NN_ULPS * np.finfo(np.float32).eps * (
+        (new[rows].astype(np.float64) ** 2).sum(1) + (cv[best].astype(np.float64) ** 2).sum(1))
+    out["nearest_neighbor_exact_share"] = float((nearest[rows] == best).mean())
+    out["nearest_neighbor_max_excess_ulps"] = float(
+        (excess / (bound / NN_ULPS)).max())
+    check(nearest.shape == (len(new),) and bool((excess <= bound).all()),
+          f"nearest neighbours of {NN_SAMPLE} rows: numpy's, or within {NN_ULPS} float32 "
+          "ulps of its distance")
+
+    log(f"[{card}] k-means scan k={KMEANS_SETTINGS['search_interval']} x n_init "
+        f"{KMEANS_SETTINGS['n_init']} on {n} x 2: {out['kmeans_scan_s']:.3f} s, chose "
+        f"k={k}; one run's Lloyd host reads {out['kmeans_lloyd_host_reads']} "
+        f"(syncs by line {out['kmeans_host_syncs']}); labels = the centroids' nearest; "
+        f"a warm start from them: CPU = card ({out['kmeans_warm_start_card_cpu_diff']} "
+        f"labels differ, centroids within {out['kmeans_warm_start_centroid_err']:.3g}), "
+        f"{out['kmeans_cpu_warm_start_changed']} labels moved; find_centroids "
+        f"{out['find_centroids_s'] * 1e3:.1f} ms")
+    log(f"[{card}] scores at {n} rows {out['scores_s']:.3f} s "
+        f"(CH {scores[0]:.6g}, DB {scores[1]:.6g}, silhouette {scores[2]:.6g}); on "
+        f"{len(cut)} rows within rel {out['scores_cut_max_rel_err']:.3g} of float64 numpy")
+    log(f"[{card}] HDBSCAN on {len(hcut)} rows: card {out['hdbscan_cut_s']:.3f} s, CPU "
+        f"{out['hdbscan_cut_cpu_s']:.3f} s, labels equal ({out['hdbscan_cut_clusters']} "
+        f"clusters, {out['hdbscan_cut_noise']} noise), probabilities within "
+        f"{out['hdbscan_cut_prob_err']:.3g}, centroids within "
+        f"{out['hdbscan_cut_centroid_err']:.3g}; at {n} rows {out['hdbscan_s']:.3f} s "
+        f"({out['hdbscan_clusters']} clusters, {out['hdbscan_noise']} noise): core "
+        f"distances {out['hdbscan_core_s']:.3f} s, Prim's tree "
+        f"{out['hdbscan_prim_steps']} steps {out['hdbscan_prim_s']:.3f} s")
+    log(f"[{card}] hierarchical (complete) scan on {len(hier)} rows "
+        f"{out['hierarchical_scan_s']:.3f} s, chose k={out['hierarchical_k']}; nearest "
+        f"neighbours of {len(new)} points ({out['nearest_neighbor_nan_rows']} NaN rows "
+        f"left out) among {n}: {out['nearest_neighbor_s']:.3f} s, "
+        f"{out['nearest_neighbor_exact_share']:.1%} of {NN_SAMPLE} checked rows numpy's "
+        f"argmin, the rest within {out['nearest_neighbor_max_excess_ulps']:.2f} ulps")
+    return out
+
+
+def phase7(calc, coords: np.ndarray, ctx: dict, tmp: str, stats, card: str,
+           device="cuda") -> dict:
+    """Phase 7: trajectory inputs and clustering, the kernels' counts zeroed
+    before and read after."""
+    for st in stats:
+        st.launches = 0
+    out = trajectory_inputs(coords, ctx, tmp, card, device)
+    out.update(clustering(calc, ctx, out.pop("xtc_features"), card, device))
+    out["launches"] = {st.name: st.launches for st in stats}
+    if device == "cuda":
+        check(out["launches"]["pair_distances_kernel"] > 0,
+              "K1 featurized the XTC trajectories")
+    log(json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1429,7 +1728,9 @@ def main() -> int:
         result, calc, ctx = main_path(coords, tmp, stats)
         surface, linear = cv_surface(calc, ctx, tmp, stats, card)
         phase6 = autoencoders(calc, linear, ctx, tmp, stats, card)
-        del ctx, linear
+        del linear
+        inputs_and_clustering = phase7(calc, coords, ctx, tmp, stats, card)
+        del ctx
     epochs = result["epoch_s"]
     log(f"[{card}] featurize {N_FRAMES / result['featurize_s']:.0f} frames/s "
         f"({result['featurize_s']:.3f} s, host decode alone "
@@ -1473,7 +1774,8 @@ def main() -> int:
         rec = dict(records[key])
         by_path = {"main_path": result["launches"][rec["name"]],
                    "cv_surface": surface["launches"][rec["name"]],
-                   "autoencoders": phase6["launches"][rec["name"]]}
+                   "autoencoders": phase6["launches"][rec["name"]],
+                   "inputs_and_clustering": inputs_and_clustering["launches"][rec["name"]]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
         rec["kernel_ms"] = rec["ms"]

@@ -46,6 +46,12 @@ MDA_TO_ENTITY_MAP = {
 }
 
 
+def to_entity_name(mda_selection: str) -> str:
+    for key, value in MDA_TO_ENTITY_MAP.items():
+        mda_selection = mda_selection.replace(key, value)
+    return mda_selection
+
+
 def to_mda_selection(entity_name: str) -> str:
     # Decode longest token first: the reference iterates dict order
     # (md.py:1696-1699), where "eq"->"==" fires INSIDE "neq"/"leq"/"geq"

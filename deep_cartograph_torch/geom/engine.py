@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import List, Optional, Tuple
+from collections import deque
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,3 +116,149 @@ class Featurizer:
             n_frames / max(dt, 1e-9),
         )
         return result
+
+    def featurize_trajectories(
+        self,
+        trajectory_paths: List[str],
+        traj_stride: int = 1,
+        frame_chunk: int = 2048,
+        timeout: Optional[float] = None,
+    ) -> List[np.ndarray]:
+        """Batch form of iter_featurize_trajectories (original order)."""
+        return [
+            feats
+            for _, feats in self.iter_featurize_trajectories(
+                trajectory_paths, traj_stride, frame_chunk, timeout
+            )
+        ]
+
+    def iter_featurize_trajectories(
+        self,
+        trajectory_paths: List[str],
+        traj_stride: int = 1,
+        frame_chunk: int = 2048,
+        timeout: Optional[float] = None,
+    ) -> Iterator[Tuple[str, np.ndarray]]:
+        """Stream N same-topology trajectories through shared chunks: a chunk
+        may span a trajectory seam, so only the batch's last chunk is short.
+
+        Yields (path, (n_frames_i, n_features) matrix) per trajectory as soon
+        as its last frame has been evaluated (delayed by at most
+        `pipeline_depth` chunks), so callers can persist each result as it
+        comes and memory stays bounded: at most `pipeline_depth` chunk
+        outputs live on the device, and host buffers hold one trajectory's
+        features plus one chunk. `timeout` (seconds) applies per trajectory.
+        """
+        chunk = auto_chunk_size(
+            frame_chunk, self.topology.n_atoms, self.plan.n_features
+        )
+        n_feat = self.plan.n_features
+        pipeline_depth = 2
+
+        buf = np.empty((chunk, self.topology.n_atoms, 3), np.float32)
+        fill = 0
+        pending: deque = deque()   # device outputs awaiting download
+        host_parts: List[np.ndarray] = []
+        host_avail = 0             # frames currently in host_parts
+        dispatched = 0             # frames sent to the device so far
+        consumed = 0               # frames already emitted to trajectories
+        finished: deque = deque()  # (path, end_offset)
+        t_start = time.time()
+
+        def flush_oldest():
+            nonlocal host_avail
+            part = pending.popleft().cpu().numpy()
+            host_parts.append(part)
+            host_avail += part.shape[0]
+
+        def dispatch():
+            nonlocal fill, dispatched
+            pending.append(self.evaluator.eval_raw(buf[:fill].copy()))
+            dispatched += fill
+            fill = 0
+            while len(pending) > pipeline_depth:
+                flush_oldest()
+
+        def take(n: int) -> np.ndarray:
+            nonlocal host_avail, consumed
+            parts: List[np.ndarray] = []
+            need = n
+            while need:
+                head = host_parts[0]
+                if head.shape[0] <= need:
+                    parts.append(host_parts.pop(0))
+                    need -= parts[-1].shape[0]
+                else:
+                    parts.append(head[:need])
+                    host_parts[0] = head[need:]
+                    need = 0
+            host_avail -= n
+            consumed += n
+            if not parts:
+                return np.zeros((0, n_feat), np.float32)
+            return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+        def ready():
+            while finished and finished[0][1] <= dispatched:
+                path, end = finished.popleft()
+                while host_avail < end - consumed:
+                    flush_oldest()
+                yield path, take(end - consumed)
+
+        offset = 0
+        for path in trajectory_paths:
+            t0 = time.time()
+            for block in iter_frame_chunks(
+                path, chunk, self.topology.source_path, stride=traj_stride
+            ):
+                if timeout is not None and time.time() - t0 > timeout:
+                    raise TimeoutError(
+                        f"Featurization of {path} exceeded the configured "
+                        f"timeout of {timeout} s."
+                    )
+                offset += block.shape[0]
+                pos = 0
+                while pos < block.shape[0]:
+                    n = min(chunk - fill, block.shape[0] - pos)
+                    buf[fill : fill + n] = block[pos : pos + n]
+                    fill += n
+                    pos += n
+                    if fill == chunk:
+                        dispatch()
+            finished.append((path, offset))
+            yield from ready()
+        if fill:
+            dispatch()
+        yield from ready()
+        if finished:
+            raise RuntimeError("trajectory frames unaccounted for")
+        dt = time.time() - t_start
+        logger.info(
+            "Featurized %d trajectories (%d frames x %d features) in %.2fs "
+            "through shared chunks (%.0f frames/s)",
+            len(trajectory_paths),
+            offset,
+            n_feat,
+            dt,
+            offset / max(dt, 1e-9),
+        )
+
+
+def featurize_trajectory(
+    trajectory_path: str,
+    topology_path: str,
+    features_list: List[str],
+    traj_stride: int = 1,
+    frame_chunk: int = 2048,
+    fit_template_path: Optional[str] = None,
+    device: DeviceLike = None,
+) -> np.ndarray:
+    """One-shot helper: decode and featurize a whole trajectory. `device`:
+    None means CUDA (raises without a card); "cpu" runs on the host."""
+    topology = Topology.from_file(topology_path)
+    fit_template = None
+    if fit_template_path is not None:
+        template = Topology.from_file(fit_template_path)
+        fit_template = (template.positions, template.occupancies)
+    featurizer = Featurizer(topology, features_list, fit_template, device=device)
+    return featurizer.featurize_trajectory(trajectory_path, traj_stride, frame_chunk)

@@ -1,21 +1,21 @@
-"""Host-side topology model: PDB parsing and writing, atom metadata.
+"""Host-side topology model: PDB and GRO parsing, PDB writing, atom
+metadata and bonds.
 
-The part of the JAX package's io/topology.py that the port uses
-(`Topology.from_pdb`/`from_file`, `features.grammar.compile_plan`, the
-residue sequence of the topology mapper, `write_pdb`/`create_pdb` of the
-model.zip, the sensitivity maps and the PLUMED files, the PLUMED atom
-numbers), copied so the port imports nothing of
-the JAX package. Only PDB is read; the other topology formats (GRO, ...)
-come with ROADMAP Queue 1 item 6. Parsing is host-side (not hot);
+The port's copy of the JAX package's io/topology.py, so that the port
+imports nothing of the JAX package. Parsing is host-side (not hot);
 coordinates become numpy arrays ready for device upload.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, List, Optional, Set, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
+
+# Covalent bond guess threshold (Angstroms), the reference's distance
+# criterion (md.py:22 `covalent_bond_threshold = 2.0`).
+COVALENT_BOND_THRESHOLD = 2.0
 
 # Standard amino-acid residue names used by the `protein` selection keyword.
 PROTEIN_RESNAMES: Set[str] = {
@@ -56,6 +56,7 @@ class Topology:
     # Optional explicit bonds (pairs of 0-based indices) from CONECT records.
     bonds: Optional[np.ndarray] = None  # (m, 2) int
     source_path: Optional[str] = None
+    _bond_sets: Optional[List[Set[int]]] = field(default=None, repr=False)
 
     @property
     def n_atoms(self) -> int:
@@ -74,6 +75,41 @@ class Topology:
     def indices_one_based(self, selection: Optional[str] = None) -> List[int]:
         """1-based indices as PLUMED numbers atoms (cf. reference md.py:855-890)."""
         return [int(i) + 1 for i in self.select(selection)]
+
+    def has_bonds(self) -> bool:
+        return self.bonds is not None and len(self.bonds) > 0
+
+    def guess_bonds(
+        self,
+        indices: Optional[Sequence[int]] = None,
+        box: Optional[np.ndarray] = None,
+    ) -> np.ndarray:
+        """Guess bonds with the reference's distance criterion (bond length
+        < 2 Angstroms). With `box` (orthorhombic lengths, Angstroms),
+        distances are minimum-image, so molecules wrapped across a periodic
+        boundary keep their bonds."""
+        idx = np.asarray(indices) if indices is not None else np.arange(self.n_atoms)
+        pos = self.positions[idx]
+        # O(n^2) distance check: fine on the host for topology-sized n.
+        diff = pos[:, None, :] - pos[None, :, :]
+        if box is not None:
+            b = np.asarray(box, pos.dtype).reshape(1, 1, 3)
+            diff = diff - b * np.round(diff / b)
+        dist = np.sqrt((diff * diff).sum(-1))
+        ii, jj = np.nonzero((dist < COVALENT_BOND_THRESHOLD) & (dist > 1e-6))
+        keep = ii < jj
+        return np.stack([idx[ii[keep]], idx[jj[keep]]], axis=1)
+
+    def bond_neighbor_sets(self) -> List[Set[int]]:
+        """Adjacency sets from explicit bonds (or guessed if absent)."""
+        if self._bond_sets is None:
+            bonds = self.bonds if self.has_bonds() else self.guess_bonds()
+            sets: List[Set[int]] = [set() for _ in range(self.n_atoms)]
+            for i, j in bonds:
+                sets[int(i)].add(int(j))
+                sets[int(j)].add(int(i))
+            self._bond_sets = sets
+        return self._bond_sets
 
     def residue_sequence(self) -> Tuple[str, List[int]]:
         """One-letter sequence and resid list, residues in file order."""
@@ -102,11 +138,40 @@ class Topology:
 
     @classmethod
     def from_file(cls, path: str) -> "Topology":
-        if path.lower().endswith(".pdb"):
+        lower = path.lower()
+        if lower.endswith(".pdb"):
             return parse_pdb(path)
-        raise NotImplementedError(
-            f"Topology format of {path}: the port reads PDB only; the other "
-            "formats come with ROADMAP Queue 1 item 6 (tools, pipeline, CLI)."
+        if lower.endswith(".gro"):
+            from deep_cartograph_torch.io.gro import parse_gro
+
+            return parse_gro(path)
+        raise ValueError(f"Unsupported topology format: {path}")
+
+    def subset(self, indices: Sequence[int]) -> "Topology":
+        idx = np.asarray(indices)
+        bonds = None
+        if self.has_bonds():
+            idx_set = {int(i) for i in idx}
+            remap = {int(old): new for new, old in enumerate(idx)}
+            kept = [
+                (remap[int(a)], remap[int(b)])
+                for a, b in self.bonds
+                if int(a) in idx_set and int(b) in idx_set
+            ]
+            bonds = np.asarray(kept, dtype=np.int64) if kept else None
+        return Topology(
+            names=self.names[idx],
+            resids=self.resids[idx],
+            resnames=self.resnames[idx],
+            chain_ids=self.chain_ids[idx],
+            segids=self.segids[idx],
+            elements=self.elements[idx],
+            positions=self.positions[idx],
+            occupancies=self.occupancies[idx],
+            bfactors=self.bfactors[idx],
+            record_types=self.record_types[idx],
+            bonds=bonds,
+            source_path=self.source_path,
         )
 
     def write_pdb(
@@ -291,7 +356,7 @@ def write_pdb(
             f"{x:8.3f}{y:8.3f}{z:8.3f}{occ[i]:6.2f}{bf[i]:6.2f}      "
             f"{seg:<4}{elem:>2}\n"
         )
-    if include_conect and top.bonds is not None and len(top.bonds) > 0:
+    if include_conect and top.has_bonds():
         for a, b in top.bonds:
             lines.append(f"CONECT{a + 1:>5}{b + 1:>5}\n")
     lines.append("END\n")

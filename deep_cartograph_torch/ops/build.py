@@ -1,13 +1,16 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries: CUDA kernels and host C++.
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 Hopper (`sm_90a`) into its own shared library, loaded with ctypes. Nothing is
 built at import: a kernel is built at its first launch, or all of them
 together by `build_all()` (one `nvcc` process per source, run in parallel).
+Host C++ sources (the XTC codec, `io/csrc/xdrcodec.cpp`) are compiled by
+`g++` with OpenMP at first use through `load_host_library`.
 
 Libraries go to `ops/_build/` next to this file, named by a hash of the
-source and the flags, so an edited source is rebuilt and concurrent
-processes never load a half-written library.
+source and the flags. Each build writes a temporary file that `os.replace`
+moves into place, so an edited source is rebuilt and concurrent processes
+(test workers) never load a half-written library.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-fopenmp", "-pthread")
 SOURCES = ("pair_distances", "kde_logsumexp", "pairwise_distance_matrix")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -60,22 +64,31 @@ def _nvcc() -> str:
     return found
 
 
-def _library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+def _library_path(src: Path, flags: Iterable[str]) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()
+    return BUILD_DIR / f"lib{src.stem}_{digest[:16]}.so"
 
 
-def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path]:
-    out = _library_path(name)
+def _start_build(compiler: str, flags: tuple, src: Path):
+    out = _library_path(src, flags)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [compiler, *flags, "-o", tmp, str(src)]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
     return proc, Path(tmp), out
+
+
+def _finish_build(proc: subprocess.Popen, tmp: Path, out: Path):
+    """None once the library is in place, else the compiler's output."""
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        return log
+    os.replace(tmp, out)
+    return None
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
@@ -84,21 +97,38 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     pending = []
     paths: Dict[str, Path] = {}
     for name in names:
-        out = _library_path(name)
+        src = CSRC / f"{name}.cu"
+        out = _library_path(src, NVCC_FLAGS)
         paths[name] = out
         if not out.exists():
-            pending.append((name, *_start_build(name)))
+            pending.append((name, _start_build(_nvcc(), NVCC_FLAGS, src)))
     errors = []
-    for name, proc, tmp, out in pending:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
+    for name, build in pending:
+        log = _finish_build(*build)
+        if log is not None:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
-        else:
-            os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths
+
+
+def load_host_library(src: Path) -> ctypes.CDLL:
+    """The ctypes handle of host C++ source `src`, compiled by `g++` on first
+    use; raises with the compiler output if the build fails."""
+    key = str(src)
+    lib = _loaded.get(key)
+    if lib is None:
+        out = _library_path(src, HOST_FLAGS)
+        if not out.exists():
+            compiler = shutil.which("g++")
+            if compiler is None:
+                raise RuntimeError(f"g++ not found; {src.name} is compiled at first use.")
+            log = _finish_build(*_start_build(compiler, HOST_FLAGS, src))
+            if log is not None:
+                raise RuntimeError(f"g++ failed for {src.name}:\n{log}")
+        lib = ctypes.CDLL(str(out))
+        _loaded[key] = lib
+    return lib
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -11,7 +11,7 @@ setup(
     package_data={
         "deep_cartograph_tpu": ["log_config/*.ini", "native/*.cpp",
                                 "default_config.yml"],
-        "deep_cartograph_torch": ["ops/csrc/*.cu", "ops/csrc/*.cuh",
+        "deep_cartograph_torch": ["ops/csrc/*.cu", "ops/csrc/*.cuh", "io/csrc/*.cpp",
                                   "stats/dip_null_table.npz"],
     },
     python_requires=">=3.10",

@@ -383,3 +383,94 @@ def test_from_model_zip_on_the_card_matches_project_data(cuda, tmp_path, cv):
     served = FramesToCV.from_model_zip(model, pdb, str(tmp_path / "serve"))(coords)
     assert torch_pd.STATS.launches > before
     np.testing.assert_allclose(served, calc.project_data(features), atol=1e-4)
+
+
+def _blobs(n, seed, noise=0.1):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0, 4, (4, 2))
+    x = centers[rng.integers(0, 4, n)] + rng.normal(0, 0.5, (n, 2))
+    x[: int(noise * n)] = rng.uniform(-10, 10, (int(noise * n), 2))
+    return x.astype(np.float32)
+
+
+def test_kmeans_on_the_card_matches_the_cpu(cuda):
+    """Batched Lloyd runs from shared centres: the same labels, centroids
+    within 1e-5; the card's labels come back from a CPU warm start."""
+    from deep_cartograph_torch.cluster import clustering
+
+    x = _blobs(5000, 1)
+    rng = np.random.default_rng(2)
+    inits = np.stack([x[rng.choice(len(x), 6, replace=False)] for _ in range(8)])
+    card = clustering._lloyd(torch.tensor(x, device=cuda), torch.tensor(inits, device=cuda))
+    cpu = clustering._lloyd(torch.tensor(x), torch.tensor(inits))
+    np.testing.assert_array_equal(card[1].cpu().numpy(), cpu[1].numpy())
+    np.testing.assert_allclose(card[0].cpu().numpy(), cpu[0].numpy(), atol=1e-5)
+    labels, centers = clustering.kmeans_clustering(x, 6, 10)
+    back, _ = clustering.kmeans_clustering(x, 6, 1, initial_centroids=centers, device="cpu")
+    np.testing.assert_array_equal(back, labels)
+
+
+def test_scores_on_the_card_match_the_cpu(cuda):
+    from deep_cartograph_torch.cluster import clustering
+
+    x = _blobs(4000, 3)
+    labels = np.random.default_rng(4).integers(-1, 5, len(x))
+    np.testing.assert_allclose(clustering.clustering_scores(x, labels),
+                               clustering.clustering_scores(x, labels, device="cpu"),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("kw", [dict(min_cluster_size=5, min_samples=3),
+                                dict(min_cluster_size=5, cluster_selection_method="leaf"),
+                                dict(min_cluster_size=5, cluster_selection_epsilon=0.5)])
+def test_hdbscan_on_the_card_matches_the_cpu(cuda, kw):
+    """float64 core distances and Prim's tree on the card: the same labels,
+    probabilities and centroids within 1e-9, duplicated rows included."""
+    from deep_cartograph_torch.cluster import clustering
+
+    x = _blobs(3000, 5)
+    x = np.concatenate([x, x[:200], np.round(x[:300], 1)])
+    card = clustering.hdbscan_fit(x, **kw)
+    cpu = clustering.hdbscan_fit(x, device="cpu", **kw)
+    np.testing.assert_array_equal(card[0], cpu[0])
+    np.testing.assert_allclose(card[1], cpu[1], atol=1e-9, rtol=0)
+    np.testing.assert_allclose(clustering.hdbscan_clustering(x, **kw)[1],
+                               clustering.hdbscan_clustering(x, device="cpu", **kw)[1],
+                               atol=1e-9, rtol=0)
+
+
+def test_nearest_neighbor_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    from deep_cartograph_torch.cluster import clustering
+
+    rng = np.random.default_rng(6)
+    new = rng.normal(size=(3000, 2)).astype(np.float32)
+    ref = rng.normal(size=(2000, 2)).astype(np.float32)
+    monkeypatch.setattr(clustering, "TILE_ELEMENTS", 2000 * 7)   # blocks of 7 rows
+    card = clustering.assign_nearest_neighbor(new, ref)
+    cpu = clustering.assign_nearest_neighbor(new, ref, device="cpu")
+    d = ((new[:, None].astype(np.float64) - ref[None]) ** 2).sum(-1)
+    rows = np.arange(len(new))
+    np.testing.assert_allclose(d[rows, card], d[rows, cpu], rtol=1e-5, atol=1e-6)
+    assert (card == cpu).mean() > 0.999
+
+
+def test_multi_trajectory_featurization_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Three XTC trajectories of uneven length through shared chunks (K1)."""
+    from deep_cartograph_torch.geom.engine import Featurizer
+    from deep_cartograph_torch.io.topology import Topology
+    from deep_cartograph_torch.io.xtc import write_xtc
+
+    pdb, _, coords = _ca_system(str(tmp_path))
+    paths = []
+    for i, part in enumerate(np.split(coords, [11, 37])):
+        paths.append(str(tmp_path / f"part{i}.xtc"))
+        write_xtc(paths[-1], part)
+    labels = [f"dist-@CA_{i}-@CA_{j}" for i in range(1, 13) for j in range(i + 3, 13)]
+    labels += ["sin-@CA_1-@CA_2-@CA_3-@CA_4", "cos-@CA_5-@CA_6-@CA_7-@CA_8"]
+    top = Topology.from_pdb(pdb)
+    before = torch_pd.STATS.launches
+    card = Featurizer(top, labels).featurize_trajectories(paths, frame_chunk=16)
+    assert torch_pd.STATS.launches > before
+    cpu = Featurizer(top, labels, device="cpu").featurize_trajectories(paths, frame_chunk=16)
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)

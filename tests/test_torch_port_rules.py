@@ -56,7 +56,7 @@ def test_import_loads_no_jax():
 def _package_files():
     for root, _, files in os.walk(PACKAGE_DIR):
         for name in files:
-            if name.endswith((".py", ".cu", ".cuh")):
+            if name.endswith((".py", ".cu", ".cuh", ".cpp")):
                 yield os.path.join(root, name)
 
 
@@ -235,6 +235,40 @@ def test_autoencoder_and_plumed_entry_points_raise_without_cuda(no_cuda, tmp_pat
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_clustering_and_multi_trajectory_entry_points_raise_without_cuda(
+        no_cuda, ca_system):
+    """k-means, the scores, HDBSCAN, the nearest-neighbour search, the
+    centroid marking, the scan and multi-trajectory featurization resolve
+    device=None to CUDA."""
+    from deep_cartograph_torch.cluster import clustering
+    from deep_cartograph_torch.geom.engine import featurize_trajectory
+
+    x = np.random.default_rng(0).normal(size=(40, 2)).astype(np.float32)
+    labels = np.arange(40) % 3
+    top = Topology.from_pdb(ca_system.pdb_path)
+    features = ["dist-@CA_1-@CA_5"]
+    for call in (
+        lambda: clustering.kmeans_clustering(x, 3, 2),
+        lambda: clustering.kmeans_clustering(x, 3, 1, initial_centroids=x[:3]),
+        lambda: clustering.clustering_scores(x, labels),
+        lambda: clustering.hdbscan_clustering(x),
+        lambda: clustering.hdbscan_fit(x),
+        lambda: clustering.assign_nearest_neighbor(x, x),
+        lambda: clustering.find_centroids(x, x[:2]),
+        lambda: clustering.optimize_clustering(x, {"algorithm": "kmeans",
+                                                   "search_interval": [2, 3]}),
+        lambda: Featurizer(top, features).featurize_trajectories([ca_system.dcd_path]),
+        lambda: featurize_trajectory(ca_system.dcd_path, ca_system.pdb_path, features),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # asking for the host is the one way to run there
+    assert clustering.assign_nearest_neighbor(x, x, device="cpu").tolist() == \
+        list(range(40))
+    featurizer = Featurizer(top, features, device="cpu")
+    assert featurizer.featurize_trajectories([ca_system.dcd_path])[0].shape == (60, 1)
 
 
 def test_kernel_wrapper_takes_its_plain_version_only_for_cpu_tensors():
