@@ -79,10 +79,26 @@ Phases, each failing the run (non-zero exit) if it fails:
    on a 5,000-row cut, and the XTC trajectory's projection assigned to its
    nearest clustered frames (100,000 against 100,000; 1,000 rows held to
    float64 numpy).
+8. Geometry analysis and UMAP on the main path's data, the kernels'
+   counters zeroed before and read after (`geometry`): RMSD (its first and
+   second call timed, and the first batched SVD of a fresh process), RMSF
+   and dRMSD (K1) of the 100,000-frame DCD against its first frame, held on
+   every 50th frame to float64 numpy and to the port on the CPU; the
+   trajectory augmented to 150,000 frames by pchip and by akima as XTC,
+   held to scipy; hydrogen bonds of a 50-residue backbone peptide over
+   100,000 frames (300 MB of coordinates), held to a float64 numpy mask on
+   every 50th frame; the Müller-Brown sampler at its defaults (50,000
+   steps), its first 1,000 steps held to float64 numpy with the same noise;
+   the UMAP CV at 100,000 x 586 (the schema's defaults, mean_std, 300
+   epochs): the fit's parts, transform, save, load and project_colvars of
+   phase 4's file timed, the kNN of 1,000 rows held to float64 numpy,
+   sigma to its equation, one layout epoch card against CPU, a fit on
+   5,000 rows card against CPU beside its one-ulp spread, and
+   FramesToCV.from_model_zip refusing the zip.
 
 Prints the nvidia-smi line, the [smoke] lines (times beside the card's name
 and power limit), then one JSON line {"kernels": [...]} (each kernel's
-launches summed over the main path and phases 4, 6 and 7, and by path), then,
+launches summed over the main path and phases 4, 6, 7 and 8, and by path), then,
 as the last line, {"ok": true, "device": {...}}. The total time is the last
 [smoke] line. The phases run one after another in this process.
 Imports nothing of JAX.
@@ -222,6 +238,35 @@ HDBSCAN_TOL = 1e-9         # float64 probabilities and centroids, card against C
 # nearest point may be farther than the float64 nearest by this many float32
 # ulps of |a|^2 + |b|^2, and no more.
 NN_ULPS = 4
+
+# Phase 8: geometry analysis, augmentation, hydrogen bonds, the Müller-Brown
+# sampler and the UMAP CV, on the main path's data.
+GEOM_CHECK_STRIDE = 50     # RMSD, RMSF, dRMSD, augmented and H-bond frames checked
+GEOM_TOL = 1e-4            # Angstrom, against float64 numpy and the port on the CPU
+DRMSD_TOL = 1e-5           # nm (the featurizer's unit): 1e-4 Angstrom
+AUGMENTED_FRAMES = 150_000
+XTC_GRID_TOL = 0.0051      # Angstrom: half of XTC's 0.01 Angstrom grid, + float32
+HBOND_RESIDUES, HBOND_FRAMES = 50, 100_000   # 250 atoms: 300 MB of coordinates
+HBOND_SETTINGS = {"first_selection": "all", "second_selection": "all",
+                  "d_a_cutoff": 6.0, "d_h_a_angle_cutoff": 90.0, "donors_sel": "name N",
+                  "hydrogens_sel": "name H", "acceptors_sel": "name O"}
+# An event may differ from the float64 mask only where its distance or angle
+# lies within this relative distance of the cutoff (float32 geometry).
+HBOND_EDGE_RTOL = 1e-5
+MB_CHECK_STEPS = 1_000     # Langevin steps held to float64 numpy with the same noise
+MB_TOL = 1e-4
+UMAP_KNN_SAMPLE = 1_000    # kNN rows held to float64 numpy
+SIGMA_RTOL = 1e-3          # sum exp(-(d - rho)/sigma) against log2(k)
+# One layout epoch, card against CPU: the card's index_add_ sums the updates
+# of a row (up to ~900 at 100,000 frames) in no fixed order, an epoch at the
+# first learning rate moves points by up to ~270, and a negative sample near
+# its head amplifies a last-bit difference ~1,000-fold, so the card parts
+# from itself by ~1e-3 between runs on the same inputs. The epoch is held to
+# max(LAYOUT_TOL, ULP_SPREAD_MULTIPLE x the card's spread), the spread taken
+# over LAYOUT_REPEATS runs and a run from the embedding with one ulp of noise.
+LAYOUT_TOL = 1e-5
+LAYOUT_REPEATS = 5
+UMAP_CUT = 5_000           # rows of the card-against-CPU fit
 
 
 def log(msg: str) -> None:
@@ -1681,6 +1726,437 @@ def phase7(calc, coords: np.ndarray, ctx: dict, tmp: str, stats, card: str,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: geometry analysis, augmentation, hydrogen bonds, Müller-Brown, UMAP
+# ---------------------------------------------------------------------------
+
+def numpy_kabsch_align(frames: np.ndarray, ref: np.ndarray) -> np.ndarray:
+    """Every frame rigidly fitted onto `ref` in float64: SVD of the centred
+    covariance, the proper rotation (det +1), apart from the port's code."""
+    f, r = frames.astype(np.float64), ref.astype(np.float64)
+    fc, rc = f.mean(1, keepdims=True), r.mean(0)
+    U, _, Vt = np.linalg.svd(np.einsum("fai,aj->fij", f - fc, r - rc))
+    V, Ut = np.swapaxes(Vt, 1, 2), np.swapaxes(U, 1, 2)
+    V[:, :, 2] *= np.sign(np.linalg.det(V @ Ut))[:, None]
+    return (f - fc) @ np.swapaxes(V @ Ut, 1, 2) + rc
+
+
+def numpy_rmsf(frames: np.ndarray) -> np.ndarray:
+    """Per-atom RMSF: aligned to frame 0, averaged, aligned to the average."""
+    average = numpy_kabsch_align(frames, frames[0]).mean(0)
+    aligned = numpy_kabsch_align(frames, average)
+    return np.sqrt(((aligned - aligned.mean(0)) ** 2).sum(-1).mean(0))
+
+
+def numpy_langevin(xi: np.ndarray, x_init, dt: float, kt: float) -> np.ndarray:
+    """Overdamped Langevin steps on the Müller-Brown surface in float64
+    (Müller & Brown 1979 parameters): the position after each step."""
+    A = np.array([-200.0, -100.0, -170.0, 15.0])
+    a, b, c = np.array([-1, -1, -6.5, 0.7]), np.array([0, 0, 11, 0.6]), \
+        np.array([-10, -10, -6.5, 0.7])
+    x0, y0 = np.array([1.0, 0.0, -0.5, -1.0]), np.array([0.0, 0.5, 1.5, 1.0])
+    x, scale, path = np.array(x_init, np.float64), np.sqrt(2.0 * kt * dt), []
+    for step in xi.astype(np.float64):
+        dx, dy = x[0] - x0, x[1] - y0
+        e = A * np.exp(a * dx ** 2 + b * dx * dy + c * dy ** 2)
+        g = np.array([np.sum(e * (2 * a * dx + b * dy)), np.sum(e * (b * dx + 2 * c * dy))])
+        x = x - np.clip(g, -1e3, 1e3) * dt + scale * step
+        path.append(x)
+    return np.asarray(path)
+
+
+# The first Kabsch SVD of a process on the card, timed in a fresh process:
+# the CUDA context first, then the first and a second batched SVD of the
+# RMSD's shape.
+_FIRST_SVD = """
+import json, sys, time, torch
+torch.zeros(1, device="cuda"); torch.cuda.synchronize()
+h = torch.randn(int(sys.argv[1]), 3, 3, device="cuda"); torch.cuda.synchronize()
+times = []
+for _ in range(2):
+    t0 = time.perf_counter(); torch.linalg.svd(h); torch.cuda.synchronize()
+    times.append(time.perf_counter() - t0)
+print(json.dumps({"first_svd_s": times[0], "second_svd_s": times[1]}))
+"""
+
+
+def first_svd_in_a_process(n_frames: int) -> dict:
+    out = subprocess.run([sys.executable, "-c", _FIRST_SVD, str(n_frames)], check=True,
+                         capture_output=True, text=True, timeout=300)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def geometry(ctx: dict, tmp: str, card: str, device="cuda") -> dict:
+    """Phase 8 (a): RMSD, RMSF and dRMSD (K1) of the main path's DCD against
+    its first frame, held on every GEOM_CHECK_STRIDE-th frame to float64
+    numpy and to the port on the CPU; the trajectory augmented to
+    AUGMENTED_FRAMES frames by pchip and by akima, written as XTC and held
+    to scipy on the same input."""
+    from scipy.interpolate import Akima1DInterpolator, PchipInterpolator
+
+    from deep_cartograph_torch.features.discovery import get_distance_labels
+    from deep_cartograph_torch.geom.analysis import RMSD, RMSF, dRMSD
+    from deep_cartograph_torch.geom.interpolate import interpolate_trajectory
+    from deep_cartograph_torch.io.dcd import write_dcd
+    from deep_cartograph_torch.io.topology import Topology
+    from deep_cartograph_torch.io.xtc import read_xtc
+
+    pdb, dcd, frames = ctx["pdb_path"], ctx["dcd_path"], ctx["frames"]
+    n_frames = frames.shape[0]
+    top = Topology.from_pdb(pdb)
+    ref = top.positions
+    rows = np.arange(0, n_frames, GEOM_CHECK_STRIDE)
+    sub = os.path.join(tmp, "every_nth.dcd")
+    write_dcd(sub, frames[rows])
+    out: dict = {}
+
+    rmsd, out["rmsd_first_s"] = synced(
+        lambda: RMSD(dcd, pdb, "name CA", "name CA", device=device), device)
+    _, out["rmsd_second_s"] = synced(
+        lambda: RMSD(dcd, pdb, "name CA", "name CA", device=device), device)
+    check(rmsd.shape == (n_frames,) and bool(np.isfinite(rmsd).all()), "RMSD finite")
+    out["rmsd_err_vs_numpy"] = float(np.abs(rmsd[rows] - np.sqrt(
+        ((numpy_kabsch_align(frames[rows], ref) - ref) ** 2).sum(-1).mean(-1))).max())
+    out["rmsd_err_vs_cpu"] = float(np.abs(
+        rmsd[rows] - RMSD(sub, pdb, "name CA", "name CA", device="cpu")).max())
+    check(max(out["rmsd_err_vs_numpy"], out["rmsd_err_vs_cpu"]) <= GEOM_TOL,
+          f"RMSD within {GEOM_TOL} A of float64 numpy and of the CPU")
+
+    (rmsf, residues), out["rmsf_s"] = synced(
+        lambda: RMSF(dcd, pdb, "name CA", "name CA", device=device), device)
+    check(len(rmsf) == len(residues) == N_ATOMS and bool(np.isfinite(rmsf).all()),
+          "RMSF per residue")
+    cut_rmsf = np.asarray(RMSF(sub, pdb, "name CA", "name CA", device=device)[0])
+    out["rmsf_err_vs_numpy"] = float(np.abs(cut_rmsf - numpy_rmsf(frames[rows])).max())
+    out["rmsf_err_vs_cpu"] = float(np.abs(
+        cut_rmsf - np.asarray(RMSF(sub, pdb, "name CA", "name CA", device="cpu")[0])).max())
+    check(max(out["rmsf_err_vs_numpy"], out["rmsf_err_vs_cpu"]) <= GEOM_TOL,
+          f"RMSF within {GEOM_TOL} A of float64 numpy and of the CPU")
+
+    drmsd, out["drmsd_s"] = synced(
+        lambda: dRMSD(dcd, pdb, "name CA", 1, pdb, device=device), device)
+    labels = get_distance_labels(top, {
+        "first_selection": "name CA", "second_selection": "name CA", "first_stride": 1,
+        "second_stride": 1, "skip_neigh_residues": True, "skip_bonded_atoms": True})
+    want = numpy_features(frames[rows], labels) - numpy_features(ref[None], labels)
+    out["drmsd_pairs"] = len(labels)
+    out["drmsd_err_vs_numpy"] = float(np.abs(
+        drmsd[rows] - np.sqrt((want ** 2).mean(1))).max())
+    check(drmsd.shape == (n_frames,) and out["drmsd_err_vs_numpy"] <= DRMSD_TOL,
+          f"dRMSD within {DRMSD_TOL} nm of float64 numpy")
+
+    # augmentation (host numpy and scipy, the port's XTC writer)
+    grid = np.arange(n_frames, dtype=np.float64)
+    new_frames = np.sort(np.concatenate((grid, np.linspace(
+        grid[0], grid[-1], AUGMENTED_FRAMES - n_frames + 2)[1:-1])))[::GEOM_CHECK_STRIDE]
+    os.makedirs(os.path.join(tmp, "augmented"), exist_ok=True)
+    for method, interpolator in (("pchip", lambda: PchipInterpolator(grid, frames, axis=0)),
+                                 ("akima", lambda: Akima1DInterpolator(
+                                     grid, frames, axis=0, method="makima"))):
+        t0 = time.perf_counter()
+        path, _ = interpolate_trajectory(pdb, dcd, AUGMENTED_FRAMES, interpolation_method=method,
+                                         traj_format="xtc",
+                                         output_path=os.path.join(tmp, "augmented"))
+        out[f"augment_{method}_s"] = time.perf_counter() - t0
+        got = read_xtc(path)
+        check(got.shape == (AUGMENTED_FRAMES, N_ATOMS, 3), f"{method}: {got.shape} frames")
+        out[f"augment_{method}_err_vs_scipy"] = float(np.abs(
+            got[::GEOM_CHECK_STRIDE] - interpolator()(new_frames)).max())
+        check(out[f"augment_{method}_err_vs_scipy"] <= XTC_GRID_TOL,
+              f"{method} frames within {XTC_GRID_TOL} A of scipy (the XTC grid)")
+    log(f"[{card}] RMSD of {n_frames} frames x {N_ATOMS} CA: first call "
+        f"{out['rmsd_first_s']:.3f} s, second {out['rmsd_second_s']:.3f} s, within "
+        f"{out['rmsd_err_vs_numpy']:.3g} A of float64 numpy, {out['rmsd_err_vs_cpu']:.3g} "
+        f"of the CPU; RMSF {out['rmsf_s']:.3f} s (on every {GEOM_CHECK_STRIDE}th frame "
+        f"within {out['rmsf_err_vs_numpy']:.3g} / {out['rmsf_err_vs_cpu']:.3g}); dRMSD "
+        f"({out['drmsd_pairs']} pairs, K1) {out['drmsd_s']:.3f} s, within "
+        f"{out['drmsd_err_vs_numpy']:.3g} nm of numpy")
+    log(f"[{card}] augmentation {n_frames} -> {AUGMENTED_FRAMES} frames as XTC: pchip "
+        f"{out['augment_pchip_s']:.2f} s, akima {out['augment_akima_s']:.2f} s; within "
+        f"{out['augment_pchip_err_vs_scipy']:.3g} / {out['augment_akima_err_vs_scipy']:.3g}"
+        f" A of scipy")
+    return out
+
+
+def hydrogen_bonds(tmp: str, card: str, device="cuda") -> dict:
+    """Phase 8 (b): analyze_residue_hbonds on a backbone_coords peptide of
+    HBOND_RESIDUES residues x HBOND_FRAMES frames; the card's events on every
+    GEOM_CHECK_STRIDE-th frame held to a float64 numpy mask."""
+    from deep_cartograph_torch.geom.hbonds import (
+        analyze_residue_hbonds,
+        hbond_mask,
+        hbond_occupancy,
+        hbond_triplets,
+    )
+    from deep_cartograph_torch.io.dcd import write_dcd
+    from deep_cartograph_torch.io.topology import parse_pdb
+    from deep_cartograph_torch.utils.demo_data import backbone_coords, write_backbone_pdb
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    coords, names, resnames, resids = backbone_coords(HBOND_RESIDUES, HBOND_FRAMES, SEED)
+    out["hbond_generate_s"] = time.perf_counter() - t0
+    out["hbond_coords_mb"] = coords.nbytes / 1e6
+    pdb, dcd = os.path.join(tmp, "peptide.pdb"), os.path.join(tmp, "peptide.dcd")
+    write_backbone_pdb(pdb, coords[0], names, resnames, resids)
+    write_dcd(dcd, coords)
+    (events, n_frames), out["hbond_s"] = synced(
+        lambda: analyze_residue_hbonds(pdb, dcd, device=device, **HBOND_SETTINGS), device)
+    s = HBOND_SETTINGS
+    d_cut, a_cut = s["d_a_cutoff"], s["d_h_a_angle_cutoff"]
+    trip = hbond_triplets(parse_pdb(pdb), coords[0], s["donors_sel"], s["hydrogens_sel"],
+                          s["acceptors_sel"], s["first_selection"], s["second_selection"])
+    _, out["hbond_mask_s"] = synced(
+        lambda: hbond_mask(coords, *trip, d_cut, a_cut, device), device)
+    out["hbond_triplets"] = len(trip[0])
+    out["hbond_events"] = len(events["frame"])
+    out["hbond_occupancy"] = hbond_occupancy(events, n_frames)
+
+    # the card's events at the checked frames, as a (frames, triplets) mask
+    rows = np.arange(0, n_frames, GEOM_CHECK_STRIDE)
+    position = {t: i for i, t in enumerate(zip(*(v.tolist() for v in trip)))}
+    at = events["frame"] % GEOM_CHECK_STRIDE == 0
+    card_mask = np.zeros((len(rows), len(trip[0])), bool)
+    cols = [position[t] for t in zip(events["donor_index"][at].tolist(),
+                                      events["hydrogen_index"][at].tolist(),
+                                      events["acceptor_index"][at].tolist())]
+    card_mask[events["frame"][at] // GEOM_CHECK_STRIDE, cols] = True
+    c = coords[rows].astype(np.float64)
+    d, h, a = (c[:, idx] for idx in trip)
+    dist = np.linalg.norm(a - d, axis=-1)
+    v1, v2 = d - h, a - h
+    angle = np.degrees(np.arccos(np.clip(np.sum(v1 * v2, -1) / (
+        np.linalg.norm(v1, axis=-1) * np.linalg.norm(v2, axis=-1) + 1e-12), -1.0, 1.0)))
+    want = (dist <= d_cut) & (angle >= a_cut)
+    edge = (np.abs(dist - d_cut) <= HBOND_EDGE_RTOL * d_cut) | \
+        (np.abs(angle - a_cut) <= HBOND_EDGE_RTOL * a_cut)
+    differ = card_mask != want
+    out["hbond_checked_events"] = int(want.sum())
+    out["hbond_differing_events"] = int(differ.sum())
+    out["hbond_edge_entries"] = int(edge.sum())
+    check(out["hbond_events"] > 0 and not (differ & ~edge).any(),
+          f"H-bond events equal the float64 mask but within rel {HBOND_EDGE_RTOL} of a "
+          f"cutoff ({out['hbond_differing_events']} differ)")
+    log(f"[{card}] H-bonds, {HBOND_RESIDUES} residues x {n_frames} frames "
+        f"({out['hbond_coords_mb']:.0f} MB of coordinates, generated in "
+        f"{out['hbond_generate_s']:.2f} s): analyze_residue_hbonds {out['hbond_s']:.3f} s "
+        f"({out['hbond_triplets']} triplets, {out['hbond_events']} events, occupancy "
+        f"{out['hbond_occupancy']:.3f}), the mask alone {out['hbond_mask_s']:.3f} s; on "
+        f"every {GEOM_CHECK_STRIDE}th frame {out['hbond_checked_events']} events, "
+        f"{out['hbond_differing_events']} differ from float64 numpy "
+        f"({out['hbond_edge_entries']} entries within rel {HBOND_EDGE_RTOL} of a cutoff)")
+    return out
+
+
+def muller_brown(card: str, device="cuda") -> dict:
+    """Phase 8 (c): the Müller-Brown sampler at its defaults, timed; its
+    first MB_CHECK_STEPS steps held to float64 numpy with the same noise
+    (the seeded generator's block of draws)."""
+    import inspect
+
+    import torch
+
+    from deep_cartograph_torch.data.muller_brown import basin_labels, sample_trajectory
+
+    defaults = {k: v.default for k, v in
+                inspect.signature(sample_trajectory).parameters.items()}
+    n_steps = defaults["n_frames"] * defaults["stride"]
+    out: dict = {}
+    traj, out["mb_s"] = synced(lambda: sample_trajectory(device=device), device)
+    gen = torch.Generator(device=device).manual_seed(defaults["seed"])
+    xi = torch.randn((n_steps, 2), generator=gen, device=device)[:MB_CHECK_STEPS]
+    want = numpy_langevin(xi.cpu().numpy(), defaults["x_init"], defaults["dt"],
+                          defaults["kt"])[::defaults["stride"]]
+    out["mb_steps"] = n_steps
+    out["mb_err_vs_numpy"] = float(np.abs(traj[:len(want)] - want).max())
+    out["mb_basins"] = len(np.unique(basin_labels(traj)))
+    check(traj.shape == (defaults["n_frames"], 2) and bool(np.isfinite(traj).all())
+          and float(np.abs(traj).max()) < 3.0, "Müller-Brown trajectory bounded")
+    check(out["mb_err_vs_numpy"] <= MB_TOL,
+          f"the first {MB_CHECK_STEPS} steps within {MB_TOL} of float64 numpy")
+    log(f"[{card}] Müller-Brown {n_steps} steps ({defaults['n_frames']} frames x stride "
+        f"{defaults['stride']}): {out['mb_s']:.2f} s, {n_steps / out['mb_s']:.0f} steps/s; "
+        f"{out['mb_basins']} basins visited; the first {MB_CHECK_STEPS} steps within "
+        f"{out['mb_err_vs_numpy']:.3g} of float64 numpy")
+    return out
+
+
+def numpy_draws(n: int):
+    """Layout draws from numpy, the same for any device: per epoch, the
+    acceptance uniforms and the negative samples."""
+    def draws(epoch, n_edges):
+        rng = np.random.default_rng([SEED, epoch])
+        return rng.random(n_edges, dtype=np.float32), rng.integers(0, n, (n_edges, 5))
+    return draws
+
+
+def umap_cv(ctx: dict, tmp: str, card: str, device="cuda") -> dict:
+    """Phase 8 (d): the UMAP CV at the main path's width through
+    cv_calculators_map["umap"] (the schema's defaults, the main path's
+    mean_std normalization, 2 components, 300 epochs): the fit's parts,
+    transform, save, load and project_colvars timed; the kNN, sigma, one
+    layout epoch and a fit on a cut held as the constants above say."""
+    import torch
+
+    from deep_cartograph_torch.config.schemas import cv_configuration, train_colvars_config
+    from deep_cartograph_torch.cv import cv_calculators_map
+    from deep_cartograph_torch.cv.base import CVCalculator
+    from deep_cartograph_torch.cv.umap_cv import (
+        UMAPModel,
+        _knn,
+        _smooth_knn,
+        layout_epoch,
+    )
+    from deep_cartograph_torch.deploy import FramesToCV
+
+    kept_features, kept, pdb = ctx["kept_features"], ctx["kept"], ctx["pdb_path"]
+    n = kept_features.shape[0]
+    config = cv_configuration(train_colvars_config(), "umap")
+    config["features_normalization"] = TRAIN_CONFIG["features_normalization"]
+    calc = cv_calculators_map["umap"](config, os.path.join(tmp, "umap_out"), device=device)
+    calc.ref_topology_path = pdb
+    calc._set_training_data(kept_features, None, kept)
+    out: dict = {}
+    (projection, labels), out["umap_run_s"] = synced(calc.run, device)
+    out["umap_fit_s"] = dict(calc.cv.fit_seconds)
+    check(projection.shape == (n, 2) and bool(np.isfinite(projection).all())
+          and labels == ["UMAP 1", "UMAP 2"], "UMAP run(): finite (n, 2) projection")
+    transformed, out["umap_transform_s"] = synced(
+        lambda: calc.project_data(kept_features), device)
+    check(transformed.shape == (n, 2) and bool(np.isfinite(transformed).all()),
+          "transform of every frame finite")
+    # the rest of run() is the save (normalize_cv and the labels take ~0)
+    out["umap_save_s"] = out["umap_run_s"] - sum(calc.cv.fit_seconds.values())
+    model = os.path.join(tmp, "umap_out", "umap", "model.zip")
+    out["umap_zip_mb"] = os.path.getsize(model) / 1e6
+    loaded, out["umap_load_s"] = synced(
+        lambda: CVCalculator.load(model, os.path.join(tmp, "umap_load"), device=device), device)
+    out["umap_zip_err"] = float(np.abs(
+        loaded.project_data(kept_features[:2000]) - transformed[:2000]).max())
+    check(out["umap_zip_err"] <= ZIP_TOL, "the loaded zip projects as the calculator")
+    colvars = os.path.join(tmp, "colvars.dat")
+    (from_file, _), out["umap_project_colvars_s"] = synced(
+        lambda: loaded.project_colvars([colvars], [pdb]), device)
+    check(from_file.shape == (COLVARS_FRAMES, 2) and bool(np.isfinite(from_file).all()),
+          "project_colvars of phase 4's file")
+    try:
+        FramesToCV.from_model_zip(model, pdb, os.path.join(tmp, "umap_serve"), device=device)
+        raise RuntimeError("check failed: FramesToCV.from_model_zip served a UMAP zip")
+    except TypeError:
+        pass
+
+    # the kNN on UMAP_KNN_SAMPLE rows against float64 numpy
+    x = calc._normalized(kept_features)
+    k = calc.cv.n_neighbors
+    (dists, idx), out["umap_knn_again_s"] = synced(lambda: _knn(x, x, k, True), device)
+    rows = np.random.default_rng(SEED).choice(n, UMAP_KNN_SAMPLE, replace=False)
+    x64 = calc.cv.training_data.astype(np.float64)
+    sq = (x64 ** 2).sum(1)
+    got_idx = idx[rows].cpu().numpy()
+    excess, exact = [], 0
+    for start in range(0, UMAP_KNN_SAMPLE, 100):
+        r = rows[start:start + 100]
+        d2 = sq[r, None] - 2 * x64[r] @ x64.T + sq[None, :]
+        d2[np.arange(len(r)), r] = np.inf
+        best = np.sort(d2, axis=1)[:, :k]
+        mine = np.take_along_axis(d2, got_idx[start:start + 100], 1)
+        exact += int((np.sort(np.argsort(d2, 1, kind="stable")[:, :k], 1)
+                      == np.sort(got_idx[start:start + 100], 1)).all(1).sum())
+        scale = np.finfo(np.float32).eps * (sq[r, None] + sq[got_idx[start:start + 100]])
+        excess.append((mine - best) / scale)
+    excess = np.concatenate(excess)
+    out["umap_knn_exact_rows"] = exact
+    out["umap_knn_max_excess_ulps"] = float(excess.max())
+    check(bool((excess <= NN_ULPS).all()),
+          f"kNN of {UMAP_KNN_SAMPLE} rows: numpy's, or within {NN_ULPS} float32 ulps")
+    (rho, sigma), out["umap_sigma_again_s"] = synced(lambda: _smooth_knn(dists), device)
+    d64, rho64, sigma64 = (v.double().cpu().numpy() for v in (dists, rho, sigma))
+    total = np.exp(-np.maximum(d64 - rho64[:, None], 0.0) / sigma64[:, None]).sum(1)
+    out["umap_sigma_max_rel_err"] = float(np.abs(total / np.log2(k) - 1).max())
+    check(out["umap_sigma_max_rel_err"] <= SIGMA_RTOL,
+          f"sigma solves sum exp(-(d - rho)/sigma) = log2(k) within rel {SIGMA_RTOL}")
+
+    # one layout epoch from the fitted embedding: the card (LAYOUT_REPEATS
+    # runs) against the CPU, from the same embedding, graph and draws
+    heads, tails, weights = calc.cv.graph_
+    uniform, negatives = numpy_draws(n)(0, len(heads))
+
+    def one_epoch(dev, embedding=calc.cv.embedding_):
+        return layout_epoch(
+            torch.as_tensor(embedding, device=dev).clone(),
+            *(torch.as_tensor(v, device=dev) for v in (heads, tails, weights, uniform)),
+            torch.as_tensor(negatives, device=dev), 1.0, calc.cv.a, calc.cv.b
+        ).cpu().numpy()
+
+    on_card = [one_epoch(device) for _ in range(LAYOUT_REPEATS)]
+    on_cpu = one_epoch("cpu")
+    out["umap_edges"] = len(heads)
+    out["umap_epoch_err"] = float(np.abs(on_card[0] - on_cpu).max())
+    on_card.append(one_epoch(device, with_ulp_noise(calc.cv.embedding_)))
+    out["umap_epoch_card_spread"] = float(max(np.abs(e - on_card[0]).max() for e in on_card))
+    out["umap_epoch_moved"] = float(np.abs(on_cpu - calc.cv.embedding_).max())
+
+    # the whole fit on a cut: card against CPU with the same draws, beside
+    # the card's spread between inputs one float32 ulp apart
+    cut = calc.cv.training_data[:UMAP_CUT]
+    fits = {}
+    for name, dev, data in (("card", device, cut), ("cpu", "cpu", cut),
+                            ("noisy", device, with_ulp_noise(cut))):
+        model_cut = UMAPModel(2, device=dev)
+        fits[name], out[f"umap_cut_{name}_s"] = synced(
+            lambda: model_cut.fit(data, numpy_draws(UMAP_CUT)).embedding_, dev)
+    out["umap_cut_err"] = float(np.abs(align_signs(fits["card"], fits["cpu"]) - fits["cpu"]).max())
+    out["umap_cut_ulp_noise_spread"] = float(
+        np.abs(align_signs(fits["noisy"], fits["card"]) - fits["card"]).max())
+    fit_s = out["umap_fit_s"]
+    log(f"[{card}] UMAP at {n} x {len(kept)}: run() {out['umap_run_s']:.2f} s (kNN "
+        f"{fit_s['knn']:.3f}, sigma {fit_s['sigma']:.3f}, symmetrize "
+        f"{fit_s['symmetrize']:.3f}, PCA init {fit_s['pca_init']:.3f}, layout "
+        f"{fit_s['layout']:.3f} s for 300 epochs over {out['umap_edges']} edges), transform "
+        f"of {n} frames {out['umap_transform_s']:.3f} s, save {out['umap_save_s']:.2f} s "
+        f"({out['umap_zip_mb']:.0f} MB zip), load {out['umap_load_s']:.2f} s, "
+        f"project_colvars ({COLVARS_FRAMES} frames) {out['umap_project_colvars_s']:.2f} s; "
+        f"from_model_zip refused")
+    log(f"[{card}] UMAP checks: kNN of {UMAP_KNN_SAMPLE} rows, {exact} exactly numpy's, the "
+        f"rest within {out['umap_knn_max_excess_ulps']:.2f} ulps; sigma within rel "
+        f"{out['umap_sigma_max_rel_err']:.3g}; one layout epoch (points moved up to "
+        f"{out['umap_epoch_moved']:.3g}) card vs CPU {out['umap_epoch_err']:.3g}, card vs "
+        f"card over {LAYOUT_REPEATS} runs and one with one-ulp noise "
+        f"{out['umap_epoch_card_spread']:.3g}; "
+        f"fit on {UMAP_CUT} rows card vs CPU {out['umap_cut_err']:.3g}, one-ulp spread "
+        f"{out['umap_cut_ulp_noise_spread']:.3g} (card {out['umap_cut_card_s']:.2f} s, CPU "
+        f"{out['umap_cut_cpu_s']:.2f} s)")
+    tol = max(LAYOUT_TOL, ULP_SPREAD_MULTIPLE * out["umap_epoch_card_spread"])
+    check(out["umap_epoch_err"] <= tol,
+          f"one layout epoch on the card within {tol:.3g} of the CPU")
+    tol = conditioning_tol(out["umap_cut_ulp_noise_spread"])
+    check(out["umap_cut_err"] <= tol,
+          f"UMAP fit on {UMAP_CUT} rows, card against CPU, within {tol:.3g}")
+    return out
+
+
+def phase8(ctx: dict, tmp: str, stats, card: str, device="cuda") -> dict:
+    """Phase 8: geometry analysis and UMAP, the kernels' counts zeroed
+    before and read after."""
+    for st in stats:
+        st.launches = 0
+    t0 = time.perf_counter()
+    out = geometry(ctx, tmp, card, device)
+    out.update(hydrogen_bonds(tmp, card, device))
+    out.update(muller_brown(card, device))
+    out.update(umap_cv(ctx, tmp, card, device))
+    out["launches"] = {st.name: st.launches for st in stats}
+    out["phase8_s"] = time.perf_counter() - t0
+    if device == "cuda":
+        check(out["launches"]["pair_distances_kernel"] >= 2,
+              "K1 featurized dRMSD's reference and trajectory")
+        out.update(first_svd_in_a_process(ctx["frames"].shape[0]))
+        log(f"[{card}] the first batched SVD of a process ({ctx['frames'].shape[0]} x 3 x 3) "
+            f"{out['first_svd_s']:.3f} s, a second {out['second_svd_s']:.4f} s")
+    log(json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1730,6 +2206,7 @@ def main() -> int:
         phase6 = autoencoders(calc, linear, ctx, tmp, stats, card)
         del linear
         inputs_and_clustering = phase7(calc, coords, ctx, tmp, stats, card)
+        geometry_and_umap = phase8(ctx, tmp, stats, card)
         del ctx
     epochs = result["epoch_s"]
     log(f"[{card}] featurize {N_FRAMES / result['featurize_s']:.0f} frames/s "
@@ -1775,7 +2252,8 @@ def main() -> int:
         by_path = {"main_path": result["launches"][rec["name"]],
                    "cv_surface": surface["launches"][rec["name"]],
                    "autoencoders": phase6["launches"][rec["name"]],
-                   "inputs_and_clustering": inputs_and_clustering["launches"][rec["name"]]}
+                   "inputs_and_clustering": inputs_and_clustering["launches"][rec["name"]],
+                   "geometry": geometry_and_umap["launches"][rec["name"]]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
         rec["kernel_ms"] = rec["ms"]

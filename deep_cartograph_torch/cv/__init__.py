@@ -14,20 +14,8 @@ from deep_cartograph_torch.cv.linear import (
     PCACalculator,
     TICACalculator,
 )
+from deep_cartograph_torch.cv.umap_cv import UMAP
 
-
-def _not_ported(name: str, item: str):
-    class NotPorted:
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError(
-                f"The {name} calculator is not ported yet ({item})."
-            )
-
-    NotPorted.__name__ = f"{name}Calculator"
-    return NotPorted
-
-
-UMAP = _not_ported("UMAP", "ROADMAP Queue 1 item 7, geometry analysis and UMAP")
 
 cv_calculators_map = {
     "pca": PCACalculator,

@@ -372,6 +372,14 @@ class CVCalculator:
     def cv_ready(self) -> bool:
         return self.cv is not None
 
+    def projection(self):
+        """The trained CV as a serving module (`deploy.FramesToCV`); the
+        linear and the deep families have one, the others do not."""
+        raise TypeError(
+            f"FramesToCV has no fused device path for {type(self).__name__}; "
+            "use calculator.project_data instead."
+        )
+
     # ------------------------------------------------------------------
     def save_model(self) -> None:
         """The model.zip content every family shares."""

@@ -129,6 +129,27 @@ def kabsch_align(
     return (mobile - mc) @ R.transpose(-1, -2) + rc
 
 
+def rmsd_per_frame(
+    mobile: torch.Tensor,
+    reference: torch.Tensor,
+    fit_weights: Optional[torch.Tensor] = None,
+    rmsd_indices: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Optimal-fit RMSD of each frame vs a reference structure (Angstroms).
+
+    Fitting uses fit_weights; the RMSD is then measured over rmsd_indices
+    (defaults to all atoms), the fit/group split of the reference's RMSD
+    (md.py:1397-1454).
+    """
+    aligned = kabsch_align(mobile, reference, fit_weights)
+    if rmsd_indices is not None:
+        idx = torch.as_tensor(rmsd_indices, device=aligned.device).long()
+        aligned = aligned.index_select(-2, idx)
+        reference = reference.index_select(-2, idx)
+    diff = aligned - reference
+    return torch.sqrt(torch.mean(torch.sum(diff * diff, dim=-1), dim=-1))
+
+
 # ---------------------------------------------------------------------------
 # Feature-plan evaluation
 # ---------------------------------------------------------------------------

@@ -474,3 +474,63 @@ def test_multi_trajectory_featurization_on_the_card_matches_the_cpu(cuda, tmp_pa
     cpu = Featurizer(top, labels, device="cpu").featurize_trajectories(paths, frame_chunk=16)
     for a, b in zip(card, cpu):
         np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+
+
+def test_rmsd_and_rmsf_on_the_card_match_the_cpu(cuda, tmp_path):
+    """The batched Kabsch fits (SVD of (frames, 3, 3)) on the card."""
+    from deep_cartograph_torch.geom.analysis import RMSD, RMSF, dRMSD
+
+    pdb, dcd, coords = _ca_system(str(tmp_path))
+    for fn, args in ((RMSD, ("name CA", "name CA")), (RMSF, ("name CA", "name CA")),
+                     (dRMSD, ("name CA", 1, pdb))):
+        card = fn(dcd, pdb, *args)
+        cpu = fn(dcd, pdb, *args, device="cpu")
+        np.testing.assert_allclose(np.asarray(card[0] if fn is RMSF else card),
+                                   np.asarray(cpu[0] if fn is RMSF else cpu),
+                                   atol=1e-5, rtol=0)
+
+
+def test_umap_graph_and_one_epoch_on_the_card_match_the_cpu(cuda):
+    """The blocked kNN, sigma search and fuzzy weights on the card against
+    the CPU; then one layout epoch from the same embedding, graph and draws
+    (index_add_ sums duplicate heads in no fixed order on the card)."""
+    from deep_cartograph_torch.cv import umap_cv as tu
+
+    rng = np.random.default_rng(71)
+    x = (rng.normal(size=(3000, 20)) * np.linspace(3, 0.2, 20)).astype(np.float32)
+    graphs = {}
+    for dev in ("cuda", "cpu"):
+        xt = torch.as_tensor(x, device=dev)
+        dists, idx = tu._knn(xt, xt, 15, exclude_self=True, row_block=257)
+        w = tu._fuzzy_weights(dists, *tu._smooth_knn(dists))
+        graphs[dev] = (dists.cpu().numpy(), idx.cpu().numpy(), w.cpu().numpy())
+    (dc, ic, wc), (dh, ih, wh) = graphs["cuda"], graphs["cpu"]
+    np.testing.assert_allclose(dc, dh, atol=1e-5, rtol=0)
+    same = ic == ih
+    assert same.mean() > 0.999
+    # a differing neighbour is a near tie: its distance is the CPU's
+    np.testing.assert_allclose(dc[~same], dh[~same], atol=1e-5, rtol=0)
+    # the weights' exp amplifies the distances' last bits through sigma
+    np.testing.assert_allclose(wc[same.all(1)], wh[same.all(1)], atol=1e-5, rtol=1e-4)
+    heads, tails, weights = tu._symmetrize(ih, wh, len(x))
+    init = tu._pca_init(torch.as_tensor(x), 2)
+    uniform = rng.uniform(size=len(heads)).astype(np.float32)
+    negatives = rng.integers(0, len(x), (len(heads), 5))
+    model = tu.UMAPModel(2, device="cpu")
+
+    def epoch(dev, embedding):
+        return tu.layout_epoch(
+            embedding.to(dev).clone(), *(torch.as_tensor(v, device=dev)
+                                         for v in (heads, tails, weights, uniform)),
+            torch.as_tensor(negatives, device=dev), 1.0, model.a, model.b).cpu().numpy()
+
+    cpu = epoch("cpu", init)
+    card = [epoch("cuda", init) for _ in range(3)]
+    noise = torch.randn(init.shape, generator=torch.Generator().manual_seed(1))
+    card.append(epoch("cuda", init * (1 + 6e-8 * noise)))
+    assert np.abs(cpu - init.numpy()).max() > 1e-3
+    # index_add_ sums a row's updates in no fixed order on the card, and a
+    # near negative sample amplifies a last-bit difference: the card is held
+    # to 3 x its own spread over repeats and one-ulp input noise
+    spread = max(np.abs(c - card[0]).max() for c in card)
+    assert np.abs(card[0] - cpu).max() <= max(1e-5, 3 * spread)

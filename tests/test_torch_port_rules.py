@@ -155,7 +155,7 @@ def test_cv_surface_entry_points_raise_without_cuda(no_cuda, tmp_path, ca_system
     x = np.random.default_rng(0).normal(2.0, 0.3, size=(30, 3)).astype(np.float32)
     write_colvars(colvars, x, ["dist-@CA_1-@CA_5", "dist-@CA_2-@CA_9",
                                "dist-@CA_3-@CA_11"])
-    for name in ("pca", "tica", "htica", "deep_tica", "ae", "vae"):
+    for name in ("pca", "tica", "htica", "deep_tica", "ae", "vae", "umap"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cv_calculators_map[name]({"dimension": 2}, str(tmp_path))
         calc = cv_calculators_map[name]({"dimension": 1, "num_subspaces": 1,
@@ -178,8 +178,6 @@ def test_cv_surface_entry_points_raise_without_cuda(no_cuda, tmp_path, ca_system
     served = FramesToCV.from_model_zip(model, ca_system.pdb_path, str(tmp_path / "s"),
                                        device="cpu")
     assert served.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="Queue 1 item"):
-        cv_calculators_map["umap"]({}, str(tmp_path))
 
 
 def test_autoencoder_and_plumed_entry_points_raise_without_cuda(no_cuda, tmp_path,
@@ -269,6 +267,51 @@ def test_clustering_and_multi_trajectory_entry_points_raise_without_cuda(
         list(range(40))
     featurizer = Featurizer(top, features, device="cpu")
     assert featurizer.featurize_trajectories([ca_system.dcd_path])[0].shape == (60, 1)
+
+
+def test_geometry_and_umap_entry_points_raise_without_cuda(no_cuda, tmp_path, ca_system):
+    """RMSD, RMSF, dRMSD (and their md surface names), the H-bond analysis
+    and mask, the Müller-Brown sampler, the UMAP model and calculator (built
+    or loaded) resolve device=None to CUDA."""
+    from deep_cartograph_torch import md
+    from deep_cartograph_torch.cv import cv_calculators_map
+    from deep_cartograph_torch.cv.base import CVCalculator
+    from deep_cartograph_torch.cv.umap_cv import UMAPModel
+    from deep_cartograph_torch.data.muller_brown import sample_trajectory
+    from deep_cartograph_torch.geom import analysis, hbonds
+    from deep_cartograph_torch.io.colvars import write_colvars
+
+    traj, top = ca_system.dcd_path, ca_system.pdb_path
+    colvars = str(tmp_path / "c.dat")
+    x = np.random.default_rng(0).normal(2.0, 0.3, size=(30, 3)).astype(np.float32)
+    labels = ["dist-@CA_1-@CA_5", "dist-@CA_2-@CA_9", "dist-@CA_3-@CA_11"]
+    write_colvars(colvars, x, labels)
+    umap = cv_calculators_map["umap"]({"dimension": 2}, str(tmp_path / "out"), device="cpu")
+    umap.load_training_data([colvars], [top])
+    umap.run()
+    model = str(tmp_path / "out" / "umap" / "model.zip")
+    for call in (
+        lambda: analysis.RMSD(traj, top, "name CA", "name CA"),
+        lambda: analysis.RMSF(traj, top, "name CA", "name CA"),
+        lambda: analysis.dRMSD(traj, top, "name CA", 1, top),
+        lambda: md.RMSD(traj, top, "name CA", "name CA"),
+        lambda: md.RMSF(traj, top, "name CA", "name CA"),
+        lambda: md.dRMSD(traj, top, "name CA", 1, top),
+        lambda: hbonds.analyze_residue_hbonds(top, traj, "all", "all"),
+        lambda: hbonds.hbond_mask(np.zeros((2, 3, 3)), [0], [1], [2], 3.0, 150.0),
+        lambda: sample_trajectory(n_frames=2, stride=1),
+        lambda: UMAPModel(2),
+        lambda: cv_calculators_map["umap"]({"dimension": 2}, str(tmp_path)),
+        lambda: CVCalculator.load(model, str(tmp_path / "load")),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # asking for the host is the one way to run there
+    assert analysis.RMSD(traj, top, "name CA", "name CA", device="cpu").shape == (60,)
+    assert sample_trajectory(n_frames=2, stride=1, device="cpu").shape == (2, 2)
+    loaded = CVCalculator.load(model, str(tmp_path / "load"), device="cpu")
+    assert loaded.cv.device.type == "cpu"
+    assert loaded.project_data(x).shape == (30, 2)
 
 
 def test_kernel_wrapper_takes_its_plain_version_only_for_cpu_tensors():
