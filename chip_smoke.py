@@ -74,7 +74,7 @@ Phases, each failing the run (non-zero exit) if it fails:
    code), its labels warm-started on the CPU from the card's centroids,
    find_centroids, the scores (held to float64 numpy on a 10,000-row cut),
    HDBSCAN (min_cluster_size 5, min_samples 3, eom; the card against the
-   port's CPU path on a 20,000-row cut; at full depth with its core
+   port's CPU path on a 20,000-row cut; on a 40,000-row cut with its core
    distances and Prim's tree timed), the complete-linkage hierarchical scan
    on a 5,000-row cut, and the XTC trajectory's projection assigned to its
    nearest clustered frames (100,000 against 100,000; 1,000 rows held to
@@ -86,7 +86,7 @@ Phases, each failing the run (non-zero exit) if it fails:
    every 50th frame to float64 numpy and to the port on the CPU; the
    trajectory augmented to 150,000 frames by pchip and by akima as XTC,
    held to scipy; hydrogen bonds of a 50-residue backbone peptide over
-   100,000 frames (300 MB of coordinates), held to a float64 numpy mask on
+   50,000 frames (150 MB of coordinates), held to a float64 numpy mask on
    every 50th frame; the Müller-Brown sampler at its defaults (50,000
    steps), its first 1,000 steps held to float64 numpy with the same noise;
    the UMAP CV at 100,000 x 586 (the schema's defaults, mean_std, 300
@@ -95,10 +95,26 @@ Phases, each failing the run (non-zero exit) if it fails:
    sigma to its equation, one layout epoch card against CPU, a fit on
    5,000 rows card against CPU beside its one-ulp spread, and
    FramesToCV.from_model_zip refusing the zip.
+9. The pipeline through its command line, the kernels' counters zeroed
+   before and read after (`pipeline`): `cli.main()` in this process with a
+   user's command line (deep_carto_torch -conf <json> ...; JSON, since the
+   card machine may lack PyYAML) on the main path's trajectory at full
+   width: the first 20,000 frames as training data, every 200th frame of
+   the next 20,000 as seed data (augmented to 1,000 frames, pchip, XTC),
+   the next 5,000 as supplementary data; RMSD, RMSF and dRMSD (K1);
+   1,171 features (K1), the std-median screen, all seven CVs (deep-TICA as
+   on the main path; AE and VAE with the schema's encoder; dimension 2,
+   lag 10), the supplementary projection, and the k-means scan (k = 3..10,
+   n_init 20) with centroids, figures off. The colvars are held to float64
+   numpy on every 50th frame, the kept features to phase 3's screen, every
+   projected CSV to its model.zip's projection, the cluster CSVs to the
+   JAX column order (one centroid per cluster, k in [3, 10]) and the
+   supplementary clusters to a float64 nearest-neighbour search; the step
+   times are the tools' own "Elapsed time" records.
 
 Prints the nvidia-smi line, the [smoke] lines (times beside the card's name
 and power limit), then one JSON line {"kernels": [...]} (each kernel's
-launches summed over the main path and phases 4, 6, 7 and 8, and by path), then,
+launches summed over the main path and phases 4, 6, 7, 8 and 9, and by path), then,
 as the last line, {"ok": true, "device": {...}}. The total time is the last
 [smoke] line. The phases run one after another in this process.
 Imports nothing of JAX.
@@ -142,6 +158,8 @@ TRAIN_CONFIG = {
                     "check_val_every_n_epoch": 1, "save_check_every_n_epoch": 1},
         "optimizer": {"name": "Adam", "kwargs": {"lr": 1e-3}},
         "model_to_save": "best",
+        # no training figures (matplotlib is not on the card machine)
+        "plot_loss": False,
     },
 }
 CUT_FRAMES, CUT_TRIES, CUT_EPOCHS = 20_000, 2, 2
@@ -149,7 +167,7 @@ CUT_FRAMES, CUT_TRIES, CUT_EPOCHS = 20_000, 2, 2
 # Phase 4: the CV file surface and the linear CVs at the main path's width.
 LINEAR_CONFIG = {"dimension": 2, "lag_time": 10, "features_normalization": "mean_std",
                  "tica_regularization": 1e-6, "num_subspaces": 10,
-                 "subspaces_dimension": 5}
+                 "subspaces_dimension": 5, "training": {"plot_loss": False}}
 COLVARS_FRAMES = 20_000   # the colvars file: a cut of depth from 100,000 (~210 MB)
 COLVARS_FMT = "%.6f"
 COLVARS_TOL = 1e-6        # half a unit of the 6th decimal + float32 rounding (< 8 nm)
@@ -230,6 +248,11 @@ HDBSCAN_SETTINGS = {"min_cluster_size": 5, "min_samples": 3,
                     "cluster_selection_method": "eom"}
 SCORES_CUT = 10_000        # rows held to a float64 numpy computation of the scores
 HDBSCAN_CUT = 20_000       # rows of the card-against-CPU HDBSCAN
+# HDBSCAN's deep run (core distances, Prim's tree, then the whole fit): a
+# cut of depth, every second row of the first 80,000, that keeps the
+# script's time with phase 9 in it (Prim's tree is launch bound, ~0.3 ms a
+# step, and runs twice).
+HDBSCAN_DEPTH = 40_000
 HIERARCHICAL_CUT = 5_000   # rows of the hierarchical scan (8 complete-linkage trees)
 NN_SAMPLE = 1_000          # nearest-neighbour rows checked against numpy
 SCORES_RTOL = 1e-4         # float32 scores against float64
@@ -246,7 +269,9 @@ GEOM_TOL = 1e-4            # Angstrom, against float64 numpy and the port on the
 DRMSD_TOL = 1e-5           # nm (the featurizer's unit): 1e-4 Angstrom
 AUGMENTED_FRAMES = 150_000
 XTC_GRID_TOL = 0.0051      # Angstrom: half of XTC's 0.01 Angstrom grid, + float32
-HBOND_RESIDUES, HBOND_FRAMES = 50, 100_000   # 250 atoms: 300 MB of coordinates
+# 250 atoms x 50,000 frames: 150 MB of coordinates (a cut of depth from
+# 100,000, for the script's time; the peptide is generated by a host loop)
+HBOND_RESIDUES, HBOND_FRAMES = 50, 50_000
 HBOND_SETTINGS = {"first_selection": "all", "second_selection": "all",
                   "d_a_cutoff": 6.0, "d_h_a_angle_cutoff": 90.0, "donors_sel": "name N",
                   "hydrogens_sel": "name H", "acceptors_sel": "name O"}
@@ -267,6 +292,61 @@ SIGMA_RTOL = 1e-3          # sum exp(-(d - rho)/sigma) against log2(k)
 LAYOUT_TOL = 1e-5
 LAYOUT_REPEATS = 5
 UMAP_CUT = 5_000           # rows of the card-against-CPU fit
+
+# Phase 9: the pipeline through its command line (deep_carto_torch), full
+# width (48 CA, 1,171 features), depth cut to the time budget.
+PIPELINE_TRAIN = (0, 20_000)           # training frames: phase 4's depth
+PIPELINE_SEED = (20_000, 40_000, 200)  # 100 seed frames, augmented to 1,000
+PIPELINE_SUP = (40_000, 45_000)        # supplementary frames
+PIPELINE_CHECK_STRIDE = 50             # colvars rows held to float64 numpy
+# %.4f rounding of the colvars text plus the features' 1e-4 against numpy
+PIPELINE_FEATURES_TOL = 5e-5 + 1e-4
+PIPELINE_CSV_TOL = 5.0001e-5           # a CSV value against its %.4f rounding
+PIPELINE_NN_SAMPLE = 1_000             # supplementary rows checked against numpy
+PIPELINE_CVS = ["pca", "ae", "tica", "htica", "deep_tica", "vae", "umap"]
+PIPELINE_CONFIG = {
+    "analyze_geometry": {"analysis": {
+        "RMSD": {"ca_rmsd": {"title": "CA RMSD", "selection": "name CA",
+                             "fit_selection": "name CA"}},
+        "RMSF": {"ca_rmsf": {"title": "CA RMSF", "selection": "name CA",
+                             "fit_selection": "name CA"}},
+        "dRMSD": {"ca_drmsd": {"title": "CA dRMSD", "selection": "name CA"}},
+    }},
+    "traj_augmentation": {"num_frames": 1000, "interpolation_method": "pchip",
+                          "traj_format": "xtc"},
+    "compute_features": {
+        "plumed_settings": {"features": {
+            "distance_groups": {"ca": {
+                "first_selection": "name CA", "second_selection": "name CA",
+                "first_stride": 1, "second_stride": 1, "skip_neigh_residues": True,
+                "skip_bonded_atoms": False}},
+            "dihedral_groups": {"tors": {"selection": "name CA",
+                                         "periodic_encoding": True,
+                                         "search_mode": "virtual"}},
+        }},
+        "engine": {"frame_chunk": CHUNK},
+    },
+    "filter_features": {"filter_settings": {
+        "compute_diptest": False, "compute_entropy": False,
+        "std_quantile": STD_QUANTILE}},
+    "train_colvars": {
+        "cvs": PIPELINE_CVS,
+        "common": {
+            "dimension": 2,
+            "lag_time": 10,
+            "features_normalization": "mean_std",
+            "training": TRAIN_CONFIG["training"],
+        },
+        "deep_tica": {"architecture": {"encoder": {
+            "layers": [64, 64], "activation": ["tanh", "tanh"],
+            "batchnorm": [False, False], "dropout": [None, None]}}},
+        "figures": {"fes": {"compute": False}, "traj_projection": {"plot": False}},
+    },
+    "traj_projection": {"figures": {"fes": {"compute": False},
+                                    "traj_projection": {"plot": False}}},
+    "traj_cluster": dict(KMEANS_SETTINGS, output_structures="centroids",
+                         figures={"plot": False}),
+}
 
 
 def log(msg: str) -> None:
@@ -1640,17 +1720,20 @@ def clustering(calc, ctx: dict, xtc_features: np.ndarray, card: str,
           f"HDBSCAN probabilities and centroids within {HDBSCAN_TOL}")
     out["hdbscan_cut_clusters"] = int(cpu_labels.max()) + 1
     out["hdbscan_cut_noise"] = int((cpu_labels == -1).sum())
-    data64 = torch.as_tensor(cv.astype(np.float64), device=device)
+    deep = cv[np.arange(0, n, max(1, n // HDBSCAN_DEPTH))[:HDBSCAN_DEPTH]]
+    out["hdbscan_rows"] = len(deep)
+    data64 = torch.as_tensor(deep.astype(np.float64), device=device)
     core, out["hdbscan_core_s"] = synced(
         lambda: cl._core_distances(data64, HDBSCAN_SETTINGS["min_samples"]), device)
     mst, out["hdbscan_prim_s"] = synced(lambda: cl._prim_mst(data64, core), device)
     out["hdbscan_prim_steps"] = len(mst[1])
     (f_labels, f_centroids), out["hdbscan_s"] = synced(
-        lambda: cl.hdbscan_clustering(cv, **HDBSCAN_SETTINGS, device=device), device)
+        lambda: cl.hdbscan_clustering(deep, **HDBSCAN_SETTINGS, device=device), device)
     out["hdbscan_clusters"] = int(f_labels.max()) + 1
     out["hdbscan_noise"] = int((f_labels == -1).sum())
-    check(f_labels.shape == (n,) and f_centroids.shape == (out["hdbscan_clusters"], 2)
-          and np.isfinite(f_centroids).all(), "HDBSCAN at full depth")
+    check(f_labels.shape == (len(deep),)
+          and f_centroids.shape == (out["hdbscan_clusters"], 2)
+          and np.isfinite(f_centroids).all(), f"HDBSCAN on {len(deep)} rows")
 
     # hierarchical (complete linkage) over the search interval, on a cut
     hier = np.arange(0, n, max(1, n // HIERARCHICAL_CUT))[:HIERARCHICAL_CUT]
@@ -1697,7 +1780,8 @@ def clustering(calc, ctx: dict, xtc_features: np.ndarray, card: str,
         f"{out['hdbscan_cut_cpu_s']:.3f} s, labels equal ({out['hdbscan_cut_clusters']} "
         f"clusters, {out['hdbscan_cut_noise']} noise), probabilities within "
         f"{out['hdbscan_cut_prob_err']:.3g}, centroids within "
-        f"{out['hdbscan_cut_centroid_err']:.3g}; at {n} rows {out['hdbscan_s']:.3f} s "
+        f"{out['hdbscan_cut_centroid_err']:.3g}; on {out['hdbscan_rows']} rows "
+        f"{out['hdbscan_s']:.3f} s "
         f"({out['hdbscan_clusters']} clusters, {out['hdbscan_noise']} noise): core "
         f"distances {out['hdbscan_core_s']:.3f} s, Prim's tree "
         f"{out['hdbscan_prim_steps']} steps {out['hdbscan_prim_s']:.3f} s")
@@ -2157,6 +2241,248 @@ def phase8(ctx: dict, tmp: str, stats, card: str, device="cuda") -> dict:
     return out
 
 
+def elapsed_seconds(text: str) -> int:
+    """Seconds of a "HH h MM min SS s" duration."""
+    h, _, m, _, sec, _ = text.split()
+    return int(h) * 3600 + int(m) * 60 + int(sec)
+
+
+def pipeline_inputs(coords: np.ndarray, root: str) -> dict:
+    """The training DCD, the seed DCD and the supplementary DCD, each with
+    its CA PDB, as a user would pass them."""
+    from deep_cartograph_torch.io.dcd import write_dcd
+
+    os.makedirs(root, exist_ok=True)
+    cuts = {"train": coords[slice(*PIPELINE_TRAIN)],
+            "seed": coords[slice(*PIPELINE_SEED)],
+            "sup": coords[slice(*PIPELINE_SUP)]}
+    paths = {}
+    for name, frames in cuts.items():
+        paths[name] = (os.path.join(root, f"{name}.dcd"), os.path.join(root, f"{name}.pdb"))
+        write_dcd(paths[name][0], frames)
+        write_ca_pdb(paths[name][1], frames[0])
+    return paths
+
+
+def run_command_line(argv: list, records: list):
+    """cli.main() in this process with `argv` as its command line; the log
+    records of the package are kept in `records` by a handler added once
+    the command line has set up its logging."""
+    import logging
+
+    from deep_cartograph_torch import cli
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    keep = Keep()
+    set_logger = cli.set_logger
+
+    def set_logger_and_keep(*args, **kwargs):
+        set_logger(*args, **kwargs)
+        logging.getLogger("deep_cartograph_torch").addHandler(keep)
+
+    saved_argv, cli.set_logger, sys.argv = sys.argv, set_logger_and_keep, argv
+    try:
+        cli.main()
+    finally:
+        sys.argv, cli.set_logger = saved_argv, set_logger
+        logger = logging.getLogger("deep_cartograph_torch")
+        for handler in list(logger.handlers):
+            logger.removeHandler(handler)
+            handler.close()
+        logger.propagate = True
+
+
+def split_rows(values: np.ndarray, labels: np.ndarray, n: int):
+    return [values[labels == i] for i in range(n)]
+
+
+def read_table(path: str):
+    """A CSV of the tools: (header, float64 matrix), True/False as 1/0."""
+    import csv
+
+    with open(path, newline="") as fh:
+        rows = list(csv.reader(fh))
+    cells = [[1.0 if c == "True" else 0.0 if c == "False" else float(c) for c in r]
+             for r in rows[1:]]
+    return rows[0], np.array(cells, np.float64).reshape(len(cells), len(rows[0]))
+
+
+def check_nearest_clusters(sup: np.ndarray, sup_cluster: np.ndarray,
+                           ref: np.ndarray, ref_cluster: np.ndarray) -> int:
+    """Each sampled supplementary row's cluster is that of a reference row
+    at the float64 nearest distance, within NN_ULPS float32 ulps of the
+    expansion's terms (rounded CSV values tie often). Returns the rows
+    whose float64 nearest row lies in another cluster (a tie)."""
+    rows = np.linspace(0, len(sup) - 1, min(PIPELINE_NN_SAMPLE, len(sup))).astype(int)
+    a = sup[rows].astype(np.float64)
+    b = ref.astype(np.float64)
+    a2, b2 = (a ** 2).sum(1)[:, None], (b ** 2).sum(1)[None, :]
+    d2 = a2 - 2 * a @ b.T + b2
+    scale = a2 + b2.max()
+    tol = NN_ULPS * np.spacing(scale.astype(np.float32)).astype(np.float64)
+    near = d2 <= d2.min(1, keepdims=True) + tol
+    ties = 0
+    for i, r in enumerate(rows):
+        allowed = set(ref_cluster[near[i]].tolist())
+        check(int(sup_cluster[r]) in allowed,
+              f"supplementary row {r} in the cluster of a nearest clustered row")
+        ties += int(ref_cluster[d2[i].argmin()] != sup_cluster[r])
+    return ties
+
+
+def pipeline(coords: np.ndarray, tmp: str, stats, card: str, device="cuda") -> dict:
+    """Phase 9: deep_cartograph() through its command line, on the card,
+    the kernels' counts zeroed before and read after, then its files held
+    to numpy and to the saved models."""
+    import importlib.util
+
+    import torch
+
+    from deep_cartograph_torch.cv.base import CVCalculator
+    from deep_cartograph_torch.io.colvars import read_colvars
+    from deep_cartograph_torch.stats.descriptors import quantile_mask, standard_deviation
+
+    root = os.path.join(tmp, "pipeline")
+    paths = pipeline_inputs(coords, os.path.join(root, "inputs"))
+    conf = os.path.join(root, "config.json")
+    with open(conf, "w") as fh:
+        json.dump(PIPELINE_CONFIG, fh)
+    out_dir = os.path.join(root, "out")
+    argv = ["deep_carto_torch", "-conf", conf,
+            "-traj_data", paths["train"][0], "-top_data", paths["train"][1],
+            "-seed_traj_data", paths["seed"][0], "-seed_top_data", paths["seed"][1],
+            "-sup_traj_data", paths["sup"][0], "-sup_top_data", paths["sup"][1],
+            "-out", out_dir]
+    records: list = []
+    out = {"matplotlib_importable": importlib.util.find_spec("matplotlib") is not None,
+           "yaml_importable": importlib.util.find_spec("yaml") is not None}
+    loaded_before = {m for m in ("matplotlib", "pandas", "yaml") if m in sys.modules}
+    for st in stats:
+        st.launches = 0
+    t0 = time.perf_counter()
+    run_command_line(argv, records)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["deep_cartograph_s"] = time.perf_counter() - t0
+    out["launches"] = {st.name: st.launches for st in stats}
+    out["step_s"] = {}
+    for message in records:
+        if message.startswith("Elapsed time ("):
+            step, _, duration = message[len("Elapsed time ("):].partition("): ")
+            out["step_s"].setdefault(step, []).append(elapsed_seconds(duration))
+    if device == "cuda":
+        check(out["launches"]["pair_distances_kernel"] > 0, "K1 ran in the pipeline")
+    # With every figure flag off, only analyze_geometry's plots (the schema
+    # has no flag for them) may load matplotlib, and only where it exists.
+    loaded = sorted({m for m in ("matplotlib", "pandas", "yaml")
+                     if m in sys.modules} - loaded_before)
+    out["libraries_loaded"] = loaded
+    allowed = ["matplotlib"] if out["matplotlib_importable"] else []
+    check(set(loaded) <= set(allowed),
+          f"the pipeline loaded no pandas or yaml, nor matplotlib where it is "
+          f"missing ({loaded})")
+
+    # The colvars: every 50th training row against float64 numpy.
+    cf = os.path.join(out_dir, "compute_features")
+    train_colvars = os.path.join(cf, "train", "colvars.dat")
+    seed_colvars = os.path.join(cf, "seed_augmented_pchip", "colvars.dat")
+    sup_colvars = os.path.join(out_dir, "compute_ref_features", "sup", "colvars.dat")
+    out["colvars_bytes"] = sum(os.path.getsize(p) for p in
+                               (train_colvars, seed_colvars, sup_colvars))
+    data, names = read_colvars(train_colvars)
+    labels = names[1:]
+    check(sorted(labels) == sorted(make_labels(N_ATOMS)), "the 1,171 features of the path")
+    n_train = PIPELINE_TRAIN[1] - PIPELINE_TRAIN[0]
+    check(data.shape == (n_train, 1172), f"training colvars shape {data.shape}")
+    rows = slice(0, n_train, PIPELINE_CHECK_STRIDE)
+    ref = numpy_features(coords[slice(*PIPELINE_TRAIN)][rows], labels)
+    out["colvars_err_vs_numpy"] = float(np.abs(data[rows, 1:] - ref).max())
+    check(out["colvars_err_vs_numpy"] <= PIPELINE_FEATURES_TOL,
+          f"colvars within {PIPELINE_FEATURES_TOL} of float64 numpy")
+    seed_data, _ = read_colvars(seed_colvars)
+    sup_data, _ = read_colvars(sup_colvars)
+    check(seed_data.shape == (1000, 1172), f"augmented seed colvars {seed_data.shape}")
+    check(sup_data.shape == (PIPELINE_SUP[1] - PIPELINE_SUP[0], 1172),
+          f"supplementary colvars {sup_data.shape}")
+
+    # The filter: phase 3's std-median screen on the same rows.
+    with open(os.path.join(out_dir, "filter_features", "filtered_features.txt")) as fh:
+        kept = [line.strip() for line in fh if line.strip()]
+    rows_all = np.concatenate([data[:, 1:], seed_data[:, 1:]])
+    keep = quantile_mask(standard_deviation(rows_all, device), STD_QUANTILE)
+    check(kept == [lab for lab, k in zip(labels, keep) if k],
+          "the filter kept phase 3's std-median screen")
+    out["n_kept"] = len(kept)
+
+    # Each CV: its CSVs against its model.zip's projection of the colvars.
+    tc = os.path.join(out_dir, "train_colvars")
+    trajectories = ["train", "seed"]
+    tops = [paths["train"][1], os.path.join(out_dir, "traj_augmentation",
+                                            "seed_augmented_pchip.pdb")]
+    out["csv_err_vs_model"] = {}
+    out["clusters"] = {}
+    out["nn_ties"] = {}
+    for cv in PIPELINE_CVS:
+        model = CVCalculator.load(os.path.join(tc, cv, "model.zip"),
+                                  os.path.join(root, "served", cv), device)
+        if cv == "umap":
+            train_want = [(model.cv.embedding_ - model.cv_norm_mean) / model.cv_norm_range]
+            train_want = split_rows(train_want[0], np.repeat(
+                [0, 1], [n_train, 1000]), 2)
+        else:
+            values, _ = model.project_colvars([train_colvars, seed_colvars], tops)
+            train_want = split_rows(values, model.projection_data_labels, 2)
+        sup_want, _ = model.project_colvars([sup_colvars], [paths["sup"][1]])
+        err = 0.0
+        cv_rows = []
+        for name, want in zip(trajectories, train_want):
+            header, got = read_table(os.path.join(tc, cv, "traj_data", name,
+                                                  "projected_trajectory.csv"))
+            check(header == model.cv_labels and got.shape == want.shape,
+                  f"{cv} {name} CSV header and shape")
+            err = max(err, float(np.abs(got - want).max()))
+        header, got = read_table(os.path.join(out_dir, "traj_projection", cv, "sup",
+                                              "projected_trajectory.csv"))
+        check(got.shape == sup_want.shape, f"{cv} supplementary CSV shape")
+        err = max(err, float(np.abs(got - sup_want).max()))
+        out["csv_err_vs_model"][cv] = err
+        check(err <= PIPELINE_CSV_TOL, f"{cv} CSVs within {PIPELINE_CSV_TOL} of model.zip")
+
+        # The clusters: JAX column order, one centroid per cluster, k in [3, 10].
+        clustered = []
+        for name in ("train", "seed_augmented_pchip"):
+            header, table = read_table(os.path.join(out_dir, "traj_cluster", cv, name,
+                                                    "projected_trajectory.csv"))
+            check(header == [*model.cv_labels, "traj_label", "cluster", "centroid",
+                             "frame"], f"{cv} cluster CSV columns {header}")
+            clustered.append(table)
+        table = np.concatenate(clustered)
+        k = len(np.unique(table[:, 3]))
+        out["clusters"][cv] = k
+        check(3 <= k <= 10, f"{cv}: {k} clusters in [3, 10]")
+        check(int(table[:, 4].sum()) == k, f"{cv}: one centroid per cluster")
+        header, sup_table = read_table(os.path.join(out_dir, "traj_cluster", cv,
+                                                    "sup_sup", "projected_trajectory.csv"))
+        check(header == [*model.cv_labels, "traj_label", "cluster"],
+              f"{cv} supplementary cluster CSV columns {header}")
+        out["nn_ties"][cv] = check_nearest_clusters(
+            sup_table[:, :2], sup_table[:, 3], table[:, :2], table[:, 3])
+        del model
+    log(f"[{card}] pipeline (deep_carto_torch, JSON configuration): "
+        f"deep_cartograph {out['deep_cartograph_s']:.1f} s; steps "
+        + ", ".join(f"{k} {'+'.join(str(v) for v in vs)} s"
+                    for k, vs in out["step_s"].items())
+        + f"; colvars {out['colvars_bytes'] / 1e6:.1f} MB; {out['n_kept']} features "
+        f"kept; K1 launches {out['launches']['pair_distances_kernel']}; "
+        f"matplotlib importable {out['matplotlib_importable']}, PyYAML importable "
+        f"{out['yaml_importable']}")
+    log(json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2207,6 +2533,7 @@ def main() -> int:
         del linear
         inputs_and_clustering = phase7(calc, coords, ctx, tmp, stats, card)
         geometry_and_umap = phase8(ctx, tmp, stats, card)
+        pipeline_run = pipeline(coords, tmp, stats, card)
         del ctx
     epochs = result["epoch_s"]
     log(f"[{card}] featurize {N_FRAMES / result['featurize_s']:.0f} frames/s "
@@ -2253,7 +2580,8 @@ def main() -> int:
                    "cv_surface": surface["launches"][rec["name"]],
                    "autoencoders": phase6["launches"][rec["name"]],
                    "inputs_and_clustering": inputs_and_clustering["launches"][rec["name"]],
-                   "geometry": geometry_and_umap["launches"][rec["name"]]}
+                   "geometry": geometry_and_umap["launches"][rec["name"]],
+                   "pipeline": pipeline_run["launches"][rec["name"]]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
         rec["kernel_ms"] = rec["ms"]

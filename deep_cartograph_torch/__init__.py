@@ -17,3 +17,11 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
+
+
+def deep_cartograph(*args, **kwargs):
+    """The pipeline (`pipeline.deep_cartograph`), imported at the first
+    call so that `import deep_cartograph_torch` stays light."""
+    from deep_cartograph_torch.pipeline import deep_cartograph as _impl
+
+    return _impl(*args, **kwargs)

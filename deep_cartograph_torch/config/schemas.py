@@ -1,16 +1,15 @@
-"""Configuration schemas of `filter_features` and `train_colvars`, as plain
+"""Configuration schemas of the tools and of the pipeline, as plain
 validated dicts.
 
-The port of the JAX package's pydantic schemas (config/schemas.py) for the
-two tools of this slice, without pydantic: every schema is a nested spec
+The port of the JAX package's pydantic schemas (config/schemas.py),
+without pydantic: every schema is a nested spec
 of fields, each with its default and its check. `validate(config, spec)`
 fills the defaults, checks the values (the same `Literal` choices, types
 and optional fields) and returns a new dict equal to the pydantic model's
 `model_dump()`. As there: the `FilterSettings` `compute_*` gates, the scalar
 broadcast of a network's activation / batchnorm / dropout over its layers,
 and per-CV override blocks of `train_colvars` (a top-level `pca:` key)
-kept as given, to be merged over `common` by `cv_configuration`. The other
-tools' schemas come with ROADMAP Queue 1 item 6.
+kept as given, to be merged over `common` by `cv_configuration`.
 """
 
 from __future__ import annotations
@@ -106,6 +105,16 @@ def nested(spec: Dict) -> Check:
     return lambda v, where: validate(v, spec, where)
 
 
+def dict_of(spec: Dict) -> Check:
+    """A mapping of names to sub-schemas (pydantic's Dict[str, Model])."""
+    def check(v, where):
+        if not isinstance(v, dict):
+            raise ConfigError(f"{where}: expected a mapping, got {v!r}")
+        return {string(k, where): validate(x, spec, f"{where}.{k}")
+                for k, x in v.items()}
+    return check
+
+
 def validate(config: Optional[Dict], spec: Dict, where: str = "config",
              allow_extra: bool = False) -> Dict:
     """`config` checked against `spec` with the defaults filled in. Unknown
@@ -135,6 +144,57 @@ def validate(config: Optional[Dict], spec: Dict, where: str = "config",
                 out[key] = copy.deepcopy(value)
     after = spec.get("__after__")
     return after(out) if after is not None else out
+
+
+# ---------------------------------------------------------------------------
+# compute_features
+# ---------------------------------------------------------------------------
+
+FEATURES = {
+    "coordinate_groups": Field({}, dict_of({
+        "selection": Field("not name H*", string),
+        "stride": Field(1, integer),
+    })),
+    "distance_groups": Field({}, dict_of({
+        "first_selection": Field("not name H*", string),
+        "second_selection": Field("not name H*", string),
+        "first_stride": Field(1, integer),
+        "second_stride": Field(5, integer),
+        "skip_neigh_residues": Field(False, boolean),
+        "skip_bonded_atoms": Field(True, boolean),
+    })),
+    "dihedral_groups": Field({}, dict_of({
+        "selection": Field("not name H*", string),
+        "periodic_encoding": Field(True, boolean),
+        "search_mode": Field("real", literal("virtual", "protein_backbone", "real")),
+    })),
+    "distance_to_center_groups": Field({}, dict_of({
+        "selection": Field("not name H*", string),
+        "center_selection": Field("not name H*", string),
+    })),
+}
+
+COMPUTE_FEATURES = {
+    "plumed_settings": {
+        "timeout": Field(172800, integer),
+        "traj_stride": Field(1, integer),
+        "features": FEATURES,
+    },
+    "plumed_environment": {
+        "bin_path": Field("plumed", string),
+        "kernel_path": Field(None, optional(string)),
+        "env_commands": Field([], list_of(string)),
+    },
+    # The featurization engine: frames per device batch, the compute type,
+    # frame sharding over several devices, and where to run ("auto" and
+    # "default": the tool's device; "cpu": the host).
+    "engine": {
+        "frame_chunk": Field(2048, integer),
+        "dtype": Field("float32", literal("float32", "bfloat16")),
+        "shard_frames": Field(True, boolean),
+        "device": Field("auto", literal("auto", "default", "cpu")),
+    },
+}
 
 
 # ---------------------------------------------------------------------------
@@ -321,6 +381,114 @@ TRAIN_COLVARS = {
     "common": COMMON_CV,
     "figures": {"fes": FES_FIGURE, "traj_projection": TRAJ_PROJECTION},
 }
+
+
+# ---------------------------------------------------------------------------
+# traj_projection, traj_cluster, traj_augmentation, analyze_geometry
+# ---------------------------------------------------------------------------
+
+TRAJ_PROJECTION_TOOL = {
+    "figures": {"fes": FES_FIGURE, "traj_projection": TRAJ_PROJECTION, "bias": BIAS},
+}
+
+TRAJ_CLUSTER = {
+    "run": Field(True, boolean),
+    "output_structures": Field("centroids", optional(literal("centroids", "all"))),
+    "algorithm": Field("hierarchical", literal("kmeans", "hdbscan", "hierarchical")),
+    "opt_num_clusters": Field(True, boolean),
+    "search_interval": Field([3, 10], list_of(integer)),
+    "num_clusters": Field(10, integer),
+    "linkage": Field("complete", string),
+    "n_init": Field(20, integer),
+    "min_cluster_size": Field(5, integer),
+    "max_cluster_size": Field(None, optional(integer)),
+    "min_samples": Field(3, integer),
+    "cluster_selection_epsilon": Field(0, number),
+    "cluster_selection_method": Field("eom", literal("eom", "leaf")),
+    "figures": {
+        "plot": Field(True, boolean),
+        "num_bins": Field(100, integer),
+        "bandwidth": Field(0.25, number),
+        "alpha": Field(0.8, number),
+        "cmap": Field("turbo", string),
+        "marker_size": Field(5, integer),
+    },
+}
+
+TRAJ_AUGMENTATION = {
+    "num_frames": Field(1000, integer),
+    "keep_original_frames": Field(False, boolean),
+    "interpolation_method": Field("pchip", optional(literal("akima", "pchip"))),
+    "noise_std": Field(None, optional(number)),
+    "random_seed": Field(42, integer),
+    "atom_selection": Field("all", string),
+    "traj_format": Field("xtc", literal("xtc", "dcd", "nc", "pdb")),
+    "prepare_trajectory": Field(False, boolean),
+}
+
+
+def _rms_settings(title: str) -> Dict:
+    return {
+        "title": Field(title, string),
+        "selection": Field("protein and name CA", string),
+        "fit_selection": Field("protein and name CA", string),
+    }
+
+
+ANALYZE_GEOMETRY = {
+    "analysis": {
+        "RMSD": Field({}, dict_of(_rms_settings("Protein Backbone RMSD"))),
+        "RMSF": Field({}, dict_of(_rms_settings("Protein Backbone RMSF"))),
+        "dRMSD": Field({}, dict_of({
+            "title": Field("Protein Backbone dRMSD", string),
+            "selection": Field("protein and name CA", string),
+            "selection_stride": Field(5, integer),
+        })),
+    },
+    "dt_per_frame": Field(1.0, number),
+    "run": Field(True, boolean),
+}
+
+
+def compute_features_config(config: Optional[Dict] = None) -> Dict:
+    """The validated `compute_features` configuration."""
+    return validate(config, COMPUTE_FEATURES, "compute_features")
+
+
+def traj_projection_config(config: Optional[Dict] = None) -> Dict:
+    """The validated `traj_projection` configuration."""
+    return validate(config, TRAJ_PROJECTION_TOOL, "traj_projection")
+
+
+def traj_cluster_config(config: Optional[Dict] = None) -> Dict:
+    """The validated `traj_cluster` configuration."""
+    return validate(config, TRAJ_CLUSTER, "traj_cluster")
+
+
+def traj_augmentation_config(config: Optional[Dict] = None) -> Dict:
+    """The validated `traj_augmentation` configuration."""
+    return validate(config, TRAJ_AUGMENTATION, "traj_augmentation")
+
+
+def analyze_geometry_config(config: Optional[Dict] = None) -> Dict:
+    """The validated `analyze_geometry` configuration."""
+    return validate(config, ANALYZE_GEOMETRY, "analyze_geometry")
+
+
+def deep_cartograph_config(config: Optional[Dict] = None) -> Dict:
+    """The validated pipeline configuration: one block per tool."""
+    config = {} if config is None else config
+    if not isinstance(config, dict):
+        raise ConfigError(f"deep_cartograph: expected a mapping, got {config!r}")
+    return {
+        "analyze_geometry": analyze_geometry_config(config.get("analyze_geometry")),
+        "traj_augmentation": traj_augmentation_config(config.get("traj_augmentation")),
+        "compute_features": compute_features_config(config.get("compute_features")),
+        "filter_features": filter_features_config(config.get("filter_features")),
+        "train_colvars": train_colvars_config(config.get("train_colvars")),
+        "traj_projection": traj_projection_config(config.get("traj_projection")),
+        "traj_cluster": traj_cluster_config(config.get("traj_cluster")),
+    }
 
 
 def filter_features_config(config: Optional[Dict] = None) -> Dict:

@@ -16,8 +16,9 @@ Differences, on purpose:
   small (the JAX side's `maybe_cpu` / `maybe_cpu_for_host_data`).
 - `run()` and `project_colvars` return (projection float32, CV labels)
   where the JAX package returns a DataFrame.
-- The sensitivity bar plot waits for ROADMAP Queue 1 item 6 (matplotlib);
-  the CSV and the per-atom structure map are written.
+- The sensitivity bar plot is drawn only where the CV's
+  `training.plot_loss` asks for its training figures; the JAX package
+  draws it whatever that flag says.
 - The PLUMED inputs' first line names the port (`plumed/assembler.py`).
 """
 
@@ -113,6 +114,7 @@ class CVCalculator:
         self.cv_dimension: Optional[int] = self.configuration.get("dimension")
         self.cv_labels: List[str] = []
         self.cv_name: Optional[str] = None
+        self.cv_range: List[Tuple[float, float]] = []
 
         self.parent_output_path: Optional[str] = output_path
         self.temp_model_path: Optional[str] = None
@@ -138,6 +140,10 @@ class CVCalculator:
         if not os.path.exists(model_path):
             raise FileNotFoundError(f"Model file not found: {model_path}")
         temp_model_path = os.path.join(output_path, "model")
+        # The unzip folder is shared by every load into `output_path`; a
+        # calculator loaded before and not yet collected leaves its files
+        # there, which would merge into this model's copy.
+        shutil.rmtree(temp_model_path, ignore_errors=True)
         unzip_files(model_path, output_path)
 
         metadata_path = os.path.join(temp_model_path, "metadata.json")
@@ -493,8 +499,11 @@ class CVCalculator:
         self, feature_labels: List[str], sensitivities: np.ndarray, folder: str
     ) -> None:
         """sensitivity_analysis.csv (pandas' layout: an unnamed index column
-        of feature names, a `sensitivity` column) and, with a reference
-        topology, the per-atom map sensitivity_structure.pdb."""
+        of feature names, a `sensitivity` column), the bar plot
+        sensitivity_barh.png where `training.plot_loss` asks for the
+        training figures and, with a reference topology, the per-atom map
+        sensitivity_structure.pdb."""
+        from deep_cartograph_torch.figures.plots import plot_sensitivity_results
         from deep_cartograph_torch.geom.structure import map_sensitivity_to_structure
 
         os.makedirs(folder, exist_ok=True)
@@ -502,6 +511,10 @@ class CVCalculator:
             fh.write(",sensitivity\n")
             for label, value in zip(feature_labels, np.asarray(sensitivities)):
                 fh.write(f"{label},{value}\n")
+        if self.configuration.get("training", {}).get("plot_loss", True):
+            results = {"feature_names": list(feature_labels),
+                       "sensitivity": {"Dataset": np.asarray(sensitivities)}}
+            plot_sensitivity_results(results, modes=["barh"], output_folder=folder)
         if self.ref_topology_path is None:
             return
         per_atom = self.compute_atom_sensitivities(list(feature_labels),
@@ -626,3 +639,6 @@ class CVCalculator:
 
     def get_cv_dimension(self) -> int:
         return self.cv_dimension
+
+    def get_range(self) -> List[Tuple[float, float]]:
+        return self.cv_range

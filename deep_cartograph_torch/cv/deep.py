@@ -26,8 +26,10 @@ Differences, on purpose:
   read without Flax (`models/msgpack.py`), so either package loads the
   other's; `cv_weights.pt` is the port's own CV traced to TorchScript.
   Try checkpoints are `model.msgpack` + `score.txt` (no Orbax mirror).
-- Not yet ported (ROADMAP Queue 1 item 6): the loss, eigenvalue and KL
-  plots.
+- Every training plot (loss, learning rate, deep-TICA's eigenvalues, the
+  VAE's KL, reconstruction and beta curves) is drawn only when the
+  training's `plot_loss` asks for it; the JAX package draws the last four
+  whatever it says.
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ from __future__ import annotations
 import copy
 import json
 import logging
-import math
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -67,7 +68,11 @@ from deep_cartograph_torch.models.training import (
     TrainResult,
 )
 from deep_cartograph_torch.models.weights import load_params, save_params
-from deep_cartograph_torch.utils.common import remove_files, zip_files
+from deep_cartograph_torch.utils.common import (
+    closest_power_of_two,
+    remove_files,
+    zip_files,
+)
 from deep_cartograph_torch.utils.device import DeviceLike
 
 logger = logging.getLogger(__name__)
@@ -75,14 +80,6 @@ logger = logging.getLogger(__name__)
 # Frames per vmap(jacrev) chunk in sensitivity_analysis: bounds the
 # (frames, n_cvs, features) Jacobian held on the device at once.
 _SENSITIVITY_CHUNK_FRAMES = 4096
-
-
-def closest_power_of_two(n: int) -> int:
-    """Largest power of two strictly below n (cf. reference common.py:645-666)."""
-    p = 2 ** math.floor(math.log2(n))
-    if p == n:
-        p //= 2
-    return p
 
 
 def validation_never_improved(valid_losses) -> bool:
@@ -601,9 +598,23 @@ class NonLinear(CVCalculator):
         self._save_sensitivity(self.features_ref_labels, sens,
                                str(self.sensitivity_output_folder))
 
+    def _plot_curves(self, curves) -> None:
+        """(keys, labels, file name, yscale) curves of the metrics, drawn
+        in the training folder when `plot_loss` asks for them and the
+        metrics hold every key."""
+        from deep_cartograph_torch.figures.plots import plot_metrics
+
+        if not self.training_config.get("plot_loss", True):
+            return
+        folder = str(self.training_output_folder)
+        for keys, labels, name, yscale in curves:
+            if all(k in self.metrics for k in keys):
+                plot_metrics(self.metrics, keys=keys, labels=labels, yscale=yscale,
+                             path=os.path.join(folder, name))
+
     def plot_training_metrics(self) -> None:
-        """The loss curves (.npy, zipped into training_metrics.zip) and the
-        model score. The plots wait for ROADMAP Queue 1 item 6."""
+        """The loss curves (.npy, zipped into training_metrics.zip), the
+        model score, and the loss and learning-rate plots."""
         if self.metrics is None:
             return
         folder = str(self.training_output_folder)
@@ -615,6 +626,11 @@ class NonLinear(CVCalculator):
                     self.training_metrics_paths.append(path)
             np.savetxt(os.path.join(folder, "model_score.txt"),
                        np.asarray([self.cv_score]), fmt="%.7g")
+        self._plot_curves([
+            (["train_loss", "valid_loss"], ["Training", "Validation"], "loss.png",
+             "linear" if self.cv_name == "deep_tica" else "log"),
+            (["lr"], ["Learning Rate"], "learning_rate.png", "log"),
+        ])
         if self.training_metrics_paths:
             zip_files(os.path.join(folder, "training_metrics.zip"),
                       *self.training_metrics_paths)
@@ -744,6 +760,11 @@ class DeepTICACalculator(NonLinear):
         if self.eigenvalues_ is not None:
             np.savetxt(os.path.join(str(self.training_output_folder), "eigenvalues.txt"),
                        np.asarray(self.eigenvalues_), fmt="%.7g")
+        self._plot_curves([
+            ([f"valid_eigval_{i + 1}" for i in range(self.cv_dimension)],
+             [f"Eigenvalue {i + 1}" for i in range(self.cv_dimension)],
+             "eigenvalues.png", "linear"),
+        ])
 
 
 def weighted_mean(values: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -846,3 +867,12 @@ class VAECalculator(NonLinear):
         recon_m = weighted_mean(recon, batch["weight"])
         kl_m = weighted_mean(kl, batch["weight"])
         return recon_m + beta * kl_m, {"reconstruction_loss": recon_m, "kl_loss": kl_m}
+
+    def plot_training_metrics(self) -> None:
+        super().plot_training_metrics()
+        self._plot_curves([
+            (["valid_kl_loss"], ["Validation KL"], "vae_kl_loss.png", "log"),
+            (["valid_reconstruction_loss"], ["Validation Reconstruction"],
+             "vae_reconstruction_loss.png", "log"),
+            (["beta"], ["Beta"], "vae_beta.png", "linear"),
+        ])

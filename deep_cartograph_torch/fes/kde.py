@@ -3,13 +3,15 @@
 The port of the JAX package's fes/kde.py. Small problems evaluate the whole
 (grid, samples) log-kernel matrix in plain PyTorch; above 5e7 grid x sample
 pairs the streaming kernel K2 (ops/kde.py) evaluates each block's
-logsumexp without ever holding that matrix.
+logsumexp without ever holding that matrix. `plot_fes` computes the
+surface, then draws it (matplotlib, imported only there).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Optional, Sequence, Tuple
+import os
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -162,3 +164,101 @@ def compute_fes(
         if error is not None:
             error = error.reshape(num_bins, num_bins)
     return axes, fes, error
+
+
+def plot_fes(
+    data: np.ndarray,
+    cv_labels: Sequence[str],
+    settings: Dict,
+    output_path: str,
+    num_blocks: int = 1,
+    sup_data: Optional[List[np.ndarray]] = None,
+    sup_data_labels: Optional[Sequence[str]] = None,
+    device: DeviceLike = None,
+) -> None:
+    """Compute and draw the FES (fes_<labels>.png in `output_path`) and, with
+    `settings["save"]`, save it with its grid and block error as .npy. With
+    `settings["compute"]` false nothing happens; otherwise the surface is
+    computed before matplotlib is imported, so a missing matplotlib raises
+    after the computation."""
+    from deep_cartograph_torch.figures.plots import pyplot
+
+    if not settings.get("compute", True):
+        return
+    data = np.asarray(data)
+    if data.ndim == 1:
+        data = data[:, None]
+    d = data.shape[1]
+    axes_grid, fes, error = compute_fes(
+        data,
+        temperature=settings.get("temperature", 300),
+        bandwidth=settings.get("bandwidth", 0.05),
+        num_bins=settings.get("num_bins", 100),
+        num_blocks=num_blocks,
+        device=device,
+    )
+    max_fes = settings.get("max_fes")
+    plt = pyplot()
+
+    os.makedirs(output_path, exist_ok=True)
+    fig, ax = plt.subplots(figsize=(6, 5))
+    masked = np.where(
+        (fes > max_fes) if max_fes is not None else np.zeros_like(fes, bool),
+        np.nan,
+        fes,
+    )
+    if d == 1:
+        ax.plot(axes_grid[0], masked, color="#4878d0")
+        if error is not None:
+            ax.fill_between(
+                axes_grid[0],
+                masked - 2 * error,
+                masked + 2 * error,
+                alpha=0.3,
+                color="#4878d0",
+            )
+        if sup_data is not None:
+            for si, sup in enumerate(sup_data):
+                label = (
+                    sup_data_labels[si]
+                    if sup_data_labels and si < len(sup_data_labels)
+                    else f"sup_{si}"
+                )
+                heights = np.interp(np.asarray(sup).ravel(), axes_grid[0], masked)
+                ax.scatter(np.asarray(sup).ravel(), heights, s=12, label=label)
+            ax.legend(fontsize=7)
+        ax.set_xlabel(cv_labels[0])
+        ax.set_ylabel("FES (kJ/mol)")
+    else:
+        cs = ax.contourf(
+            axes_grid[0],
+            axes_grid[1],
+            masked.T,
+            levels=settings.get("num_fes_levels", 10),
+            cmap="fessa" if "fessa" in plt.colormaps() else "viridis",
+        )
+        fig.colorbar(cs, ax=ax, label="FES (kJ/mol)")
+        if sup_data is not None:
+            for si, sup in enumerate(sup_data):
+                label = (
+                    sup_data_labels[si]
+                    if sup_data_labels and si < len(sup_data_labels)
+                    else f"sup_{si}"
+                )
+                ax.scatter(sup[:, 0], sup[:, 1], s=12, label=label)
+            ax.legend(fontsize=7)
+        ax.set_xlabel(cv_labels[0])
+        ax.set_ylabel(cv_labels[1])
+
+    name = "_".join(str(lbl).replace(" ", "_") for lbl in cv_labels)
+    fig.savefig(
+        os.path.join(output_path, f"fes_{name}.png"), dpi=150, bbox_inches="tight"
+    )
+    plt.close(fig)
+
+    if settings.get("save", False):
+        np.save(os.path.join(output_path, f"fes_{name}.npy"), fes)
+        for i, axis in enumerate(axes_grid):
+            np.save(os.path.join(output_path, f"grid_{name}_{i}.npy"), axis)
+        if error is not None:
+            np.save(os.path.join(output_path, f"fes_error_{name}.npy"), error)

@@ -9,8 +9,8 @@ MDAnalysis defaults: donor-acceptor distance <= d_a_cutoff (Angstrom) AND
 donor-hydrogen-acceptor angle >= d_h_a_angle_cutoff (degrees).
 
 Where the JAX package returns a DataFrame, the port returns a dict of numpy
-columns with the same names, in the same row order. The barcode plot
-(`plot_multibond_barcode`) waits for the port's figures (ROADMAP item 6b).
+columns with the same names, in the same row order; the barcode plot
+(`plot_multibond_barcode`) takes such dicts.
 """
 
 from __future__ import annotations
@@ -227,3 +227,42 @@ def hbond_occupancy(events: Dict[str, np.ndarray], n_frames: int) -> float:
     if frames.size == 0:
         return 0.0
     return float(len(np.unique(frames))) / float(n_frames)
+
+
+def plot_multibond_barcode(
+    hbond_dict: Dict[str, Dict[str, np.ndarray]],
+    total_frames: int,
+    dt: float = 1.0,
+    title: str = "",
+    file_path: Optional[str] = None,
+):
+    """Barcode plot: one lane per labelled bond (its events as a dict of
+    columns), a tick at every frame where the bond exists, and its
+    occupancy at the lane's end."""
+    from deep_cartograph_torch.figures.plots import pyplot
+
+    plt = pyplot()
+    n = len(hbond_dict)
+    fig, ax = plt.subplots(figsize=(10, 0.8 * n + 1.2))
+    for lane, (label, events) in enumerate(hbond_dict.items()):
+        frames = np.unique(np.asarray(events["frame"]))
+        for f in frames:
+            ax.plot(
+                [f * dt, f * dt],
+                [lane - 0.35, lane + 0.35],
+                color="tab:blue",
+                linewidth=0.8,
+            )
+        occ = hbond_occupancy(events, total_frames) * 100
+        ax.text(total_frames * dt * 1.01, lane, f"{occ:.0f}%", va="center")
+    ax.set_yticks(range(n))
+    ax.set_yticklabels(list(hbond_dict.keys()))
+    ax.set_xlim(0, total_frames * dt * 1.08)
+    ax.set_xlabel("time")
+    ax.set_title(title)
+    fig.tight_layout()
+    if file_path:
+        fig.savefig(file_path, dpi=120)
+        plt.close(fig)
+        return None
+    return fig

@@ -334,6 +334,21 @@ def read_features(
 # Loading strategy: in memory or streamed
 # ---------------------------------------------------------------------------
 
+def check(colvars_path: str) -> None:
+    """Exit (code 1) unless the colvars file exists, has rows and holds no
+    NaN; a file this process wrote is checked from the memory cache."""
+    if not os.path.exists(colvars_path):
+        logger.error("COLVARS file not found: %s", colvars_path)
+        sys.exit(1)
+    data = _load_matrix(colvars_path)
+    if data.size == 0:
+        logger.error("COLVARS file is empty: %s", colvars_path)
+        sys.exit(1)
+    if np.isnan(data).any():
+        logger.error("COLVARS file contains NaN values: %s", colvars_path)
+        sys.exit(1)
+
+
 def estimate_matrix_bytes(
     colvars_paths: Paths,
     n_features: int,

@@ -12,7 +12,7 @@ setup(
         "deep_cartograph_tpu": ["log_config/*.ini", "native/*.cpp",
                                 "default_config.yml"],
         "deep_cartograph_torch": ["ops/csrc/*.cu", "ops/csrc/*.cuh", "io/csrc/*.cpp",
-                                  "stats/dip_null_table.npz"],
+                                  "stats/dip_null_table.npz", "log_config/*.ini"],
     },
     python_requires=">=3.10",
     entry_points={
@@ -28,6 +28,9 @@ setup(
             "traj_augmentation = deep_cartograph_tpu.tool_cli:traj_augmentation_main",
             "traj_cluster = deep_cartograph_tpu.tool_cli:traj_cluster_main",
             "traj_projection = deep_cartograph_tpu.tool_cli:traj_projection_main",
+            # the PyTorch/CUDA port's pipeline; its tools run as
+            # `python -m deep_cartograph_torch.tool_cli <tool> ...`
+            "deep_carto_torch = deep_cartograph_torch.cli:main",
         ]
     },
 )

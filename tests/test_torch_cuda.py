@@ -283,8 +283,11 @@ def _gapped_features(n=3000, d=20, seed=0):
     return (z @ mix + 0.3 * rng.standard_normal((n, d))).astype(np.float32)
 
 
+# No training figures: the card machine has no matplotlib, and plot_loss
+# (default true) asks for the sensitivity bars and the training curves.
 LINEAR_CONFIG = {"dimension": 2, "lag_time": 5, "features_normalization": "mean_std",
-                 "num_subspaces": 4, "subspaces_dimension": 3}
+                 "num_subspaces": 4, "subspaces_dimension": 3,
+                 "training": {"plot_loss": False}}
 
 
 @pytest.mark.parametrize("cv,d", [("pca", 20), ("pca", 300), ("tica", 20),
@@ -374,7 +377,7 @@ def test_from_model_zip_on_the_card_matches_project_data(cuda, tmp_path, cv):
     config = dict(LINEAR_CONFIG, architecture={"encoder": {"layers": [16],
                                                            "activation": ["tanh"]}},
                   training={"general": {"num_tries": 2, "batch_size": 64,
-                                        "max_epochs": 3}})
+                                        "max_epochs": 3}, "plot_loss": False})
     calc = cv_calculators_map[cv](config, str(tmp_path / "out"))
     calc.load_training_data([path], [pdb])
     assert calc.run() is not None

@@ -1,7 +1,9 @@
 """Rules of the PyTorch port: it never loads JAX, the JAX package, nor the
 libraries the card machine lacks (pandas, pydantic, yaml, msgpack, flax,
-matplotlib, sklearn), and it never falls back to the CPU when the caller
-did not ask for it."""
+matplotlib, sklearn) when imported; it imports matplotlib only where it
+draws a figure and PyYAML only where it reads a configuration that is not
+JSON; and it never falls back to the CPU when the caller did not ask for
+it."""
 
 import os
 import re
@@ -66,14 +68,77 @@ FORBIDDEN_IMPORT = re.compile(
 )
 
 
+# The two imports the port may make, each inside one function and nowhere
+# at module level: matplotlib where figures are drawn, PyYAML where a
+# configuration that is not JSON is read.
+ALLOWED_IMPORTS = {
+    ("deep_cartograph_torch/figures/plots.py", "pyplot"): re.compile(
+        r"^\s+import matplotlib(\.pyplot as plt)?$"),
+    ("deep_cartograph_torch/utils/common.py", "read_configuration"): re.compile(
+        r"^\s+import yaml$"),
+}
+
+
+def _enclosing_functions(path):
+    """Line number -> name of the innermost function defined around it."""
+    import ast
+
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    owner = {}
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            for line in range(node.lineno, node.end_lineno + 1):
+                if line not in owner or owner[line][0] < node.lineno:
+                    owner[line] = (node.lineno, node.name)
+    return {line: name for line, (_, name) in owner.items()}
+
+
+def _forbidden_imports(path, rel=None):
+    """The forbidden import lines of `path` (`rel`: the repo path it stands
+    for, by default its own) that are not an allowed exception."""
+    rel = rel or os.path.relpath(path, REPO_ROOT)
+    functions = None
+    offenders = []
+    with open(path) as fh:
+        for lineno, line in enumerate(fh, 1):
+            if not FORBIDDEN_IMPORT.search(line):
+                continue
+            if path.endswith(".py") and functions is None:
+                functions = _enclosing_functions(path)
+            allowed = ALLOWED_IMPORTS.get((rel, (functions or {}).get(lineno)))
+            if allowed is None or not allowed.match(line.rstrip("\n")):
+                offenders.append(f"{rel}:{lineno}")
+    return offenders
+
+
 def test_no_file_imports_a_forbidden_library():
     offenders = []
     for path in list(_package_files()) + [os.path.join(REPO_ROOT, "chip_smoke.py")]:
-        with open(path) as fh:
-            for lineno, line in enumerate(fh, 1):
-                if FORBIDDEN_IMPORT.search(line):
-                    offenders.append(f"{os.path.relpath(path, REPO_ROOT)}:{lineno}")
+        offenders += _forbidden_imports(path)
     assert offenders == []
+
+
+def test_the_allowed_imports_are_the_only_ones(tmp_path):
+    """The two exceptions hold only inside their own function: the same
+    line at module level, or in another function or file, is refused."""
+    assert len(ALLOWED_IMPORTS) == 2
+    plots = os.path.join(PACKAGE_DIR, "figures", "plots.py")
+    common = os.path.join(PACKAGE_DIR, "utils", "common.py")
+    assert _forbidden_imports(plots) == [] and _forbidden_imports(common) == []
+    for rel, body in (
+        ("deep_cartograph_torch/figures/plots.py", "import matplotlib\n"),
+        ("deep_cartograph_torch/figures/plots.py",
+         "def draw():\n    import matplotlib\n"),
+        ("deep_cartograph_torch/utils/common.py",
+         "def pyplot():\n    import yaml\n"),
+        ("deep_cartograph_torch/fes/kde.py", "def pyplot():\n    import matplotlib\n"),
+        ("deep_cartograph_torch/utils/common.py",
+         "def read_configuration():\n    import pandas\n"),
+    ):
+        path = tmp_path / "candidate.py"
+        path.write_text(body)
+        assert len(_forbidden_imports(str(path), rel)) == 1, (rel, body)
 
 
 def test_chip_smoke_imports_no_jax():
@@ -102,7 +167,23 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_raise_without_cuda(no_cuda, ca_system):
+@pytest.fixture
+def restore_port_logger():
+    """cli.main configures the `deep_cartograph_torch` logger (handlers, no
+    propagation); put it back as it was."""
+    import logging
+
+    logger = logging.getLogger("deep_cartograph_torch")
+    saved = (list(logger.handlers), logger.propagate, logger.level)
+    yield
+    for handler in logger.handlers:
+        if handler not in saved[0]:
+            handler.close()
+    logger.handlers[:], logger.propagate, logger.level = saved[0], saved[1], saved[2]
+
+
+def test_entry_points_raise_without_cuda(no_cuda, ca_system, tmp_path, monkeypatch,
+                                         restore_port_logger):
     top = Topology.from_pdb(ca_system.pdb_path)
     labels = ["dist-@CA_1-@CA_5", "sin-@CA_1-@CA_2-@CA_3-@CA_4"]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -120,6 +201,45 @@ def test_entry_points_raise_without_cuda(no_cuda, ca_system):
     assert Featurizer(top, labels, device="cpu").evaluator.device.type == "cpu"
     plan = Featurizer(top, labels, device="cpu").plan
     assert PlanEvaluator(plan, device="cpu").device == torch.device("cpu")
+
+    # every tool but the host-only traj_augmentation, the pipeline and its
+    # command line
+    from deep_cartograph_torch import cli, deep_cartograph, tools
+    from deep_cartograph_torch.io.colvars import write_colvars
+
+    colvars = str(tmp_path / "colvars.dat")
+    write_colvars(colvars, np.random.default_rng(0).normal(2, 0.3, (30, 2)), labels)
+    traj, pdb, out = ca_system.dcd_path, ca_system.pdb_path, str(tmp_path / "out")
+    for call in (
+        lambda: tools.compute_features({}, traj, pdb, output_folder=out),
+        lambda: tools.filter_features({}, [colvars], output_folder=out),
+        lambda: tools.train_colvars({}, [colvars], output_folder=out),
+        lambda: tools.traj_projection({}, [colvars], model_paths=[], output_folder=out),
+        lambda: tools.traj_cluster({}, [colvars], output_folder=out),
+        lambda: tools.analyze_geometry({}, [traj], [pdb], output_folder=out),
+        lambda: tools.align_trajectories(traj, pdb, output_folder=out),
+        lambda: deep_cartograph({}, traj, pdb, output_folder=out),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    conf = tmp_path / "conf.json"
+    conf.write_text("{}")
+    monkeypatch.setattr(sys, "argv", ["deep_carto_torch", "-conf", str(conf),
+                                      "-traj_data", traj, "-top_data", pdb,
+                                      "-out", str(tmp_path / "cli")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main()
+    # the engine block's "cpu" is the configuration's way to featurize there
+    engine = {"device": "cpu", "dtype": "float32", "shard_frames": True,
+              "frame_chunk": 2048}
+    from deep_cartograph_torch.tools.compute_features import engine_device
+
+    assert engine_device(engine).type == "cpu"
+    for value in ("auto", "default"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            engine_device(dict(engine, device=value))
+    with pytest.raises(ValueError, match="float32"):
+        engine_device(dict(engine, device="cpu", dtype="bfloat16"))
 
 
 def test_training_slice_entry_points_raise_without_cuda(no_cuda):
