@@ -8,7 +8,8 @@ Run from the repository root, with one card visible:
 Phases, each failing the run (non-zero exit) if it fails:
 
 1. Device and build: requires CUDA, prints the card's name and power limit
-   (nvidia-smi), builds every kernel from ops/csrc with nvcc in parallel.
+   (nvidia-smi), builds every kernel from ops/csrc with nvcc in parallel,
+   then the host C++ libraries (io/csrc, stats/csrc) with g++ in parallel.
 2. Kernels against their plain PyTorch versions at the main path's shapes:
    K1 (pair distances) on one featurize chunk (the 20,000 frames asked for,
    clamped by auto_chunk_size to 13,899) of 48 CA atoms x 1,081 pairs,
@@ -111,10 +112,25 @@ Phases, each failing the run (non-zero exit) if it fails:
    JAX column order (one centroid per cluster, k in [3, 10]) and the
    supplementary clusters to a float64 nearest-neighbour search; the step
    times are the tools' own "Elapsed time" records.
+10. The native host I/O and transport, the kernels' counters zeroed before
+   and read after (`native_io`): the main path's DCD (read, like phase 3's,
+   by the prefetching native reader) featurized again with int16 upload
+   (quantized on the host, dequantized on the card, K1), held to phase 3's
+   float32 features within the bound the quantization step implies; phase
+   4's colvars file (20,000 frames x 1,172) written by the native formatter
+   and read by the native parser with the memory cache on (MB/s; its first
+   2,000 rows byte-equal to the Python writer's, a cold read equal to the
+   cached one); the batch dip test over the 586 kept features (16 of them
+   held to the Python dip); the streaming HTICA at phase 4's shape (20,000
+   frames, 580 features) by fit, fit_fused and fit_chunked on blocks
+   featurized through K1 from coordinates on the card (the fused and
+   chunked passes replay CUDA graphs), held to each other within 1e-5; the
+   calpha_transitions demo dataset materialized and one system featurized;
+   the PLUMED driver on an exported input where a plumed binary exists.
 
 Prints the nvidia-smi line, the [smoke] lines (times beside the card's name
 and power limit), then one JSON line {"kernels": [...]} (each kernel's
-launches summed over the main path and phases 4, 6, 7, 8 and 9, and by path), then,
+launches summed over the main path and phases 4, 6, 7, 8, 9 and 10, and by path), then,
 as the last line, {"ok": true, "device": {...}}. The total time is the last
 [smoke] line. The phases run one after another in this process.
 Imports nothing of JAX.
@@ -347,6 +363,19 @@ PIPELINE_CONFIG = {
     "traj_cluster": dict(KMEANS_SETTINGS, output_structures="centroids",
                          figures={"plot": False}),
 }
+
+# Phase 10: the native host I/O and transport, on the main path's data.
+COLVARS_PLAIN_ROWS = 2_000    # rows of the native file the Python writer must give
+DIP_PLAIN_FEATURES = 16       # kept features held to the Python dip
+DIP_TOL = 1e-12               # p-values, batch against the Python dip
+HTICA_BLOCK = 2_000           # generated block: 10 blocks of phase 4's 20,000 frames
+HTICA_BLOCKS_PER_DISPATCH = 5
+FUSED_TOL = 1e-5              # fit_fused and fit_chunked against fit (same moments)
+# int16 features against float32 (int16_excess, dihedral_error_bound): the
+# float32 rounding of the two feature computations, beyond what the
+# quantization moves.
+INT16_FLOAT32_ALLOWANCE = 4e-6
+DEMO_DATASET, DEMO_SYSTEM = "calpha_transitions", "1rcs_B-3ssx_R-3"
 
 
 def log(msg: str) -> None:
@@ -721,11 +750,17 @@ def main_path(coords: np.ndarray, tmp: str, stats) -> dict:
     featurizer = Featurizer(top, labels)
     result = {}
 
-    # Host decode alone, for the breakdown of the featurize time.
+    # Host decode alone, for the breakdown of the featurize time: the
+    # prefetching native reader (what iter_frame_chunks takes), then the
+    # read_dcd slices it replaced.
     t0 = time.perf_counter()
     for _ in iter_frame_chunks(dcd_path, CHUNK):
         pass
     result["decode_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for start in range(0, N_FRAMES, CHUNK):
+        read_dcd(dcd_path, start, start + CHUNK)
+    result["decode_slices_s"] = time.perf_counter() - t0
 
     for s in stats:
         s.launches = 0
@@ -2483,6 +2518,340 @@ def pipeline(coords: np.ndarray, tmp: str, stats, card: str, device="cuda") -> d
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: native host I/O and transport
+# ---------------------------------------------------------------------------
+
+def dihedral_error_bound(coords: np.ndarray, quads: np.ndarray,
+                         delta: np.ndarray) -> np.ndarray:
+    """(frames, quads): how far the sine or cosine of a dihedral can move
+    when each coordinate moves by at most delta (per frame, per axis), and
+    the float32 rounding of two evaluations. With F = r0 - r1, G = r1 - r2,
+    H = r3 - r2 (each moving by at most d = 2 sqrt(3) delta), A = F x G and
+    B = H x G, the sine and cosine are products of the unit vectors of A, B
+    and G; a unit vector moves by at most 2 |dV| / |V| (and by 2 at most),
+    and |dA| <= d |G| + |F| d + d^2. Float32 loses eps |F||G| / |A| of A."""
+    x = coords.astype(np.float64)
+    f = x[:, quads[:, 0]] - x[:, quads[:, 1]]
+    g = x[:, quads[:, 1]] - x[:, quads[:, 2]]
+    h = x[:, quads[:, 3]] - x[:, quads[:, 2]]
+    nf, ng, nh = (np.linalg.norm(v, axis=-1) for v in (f, g, h))
+    na = np.linalg.norm(np.cross(f, g), axis=-1)
+    nb = np.linalg.norm(np.cross(h, g), axis=-1)
+    d = 2 * np.sqrt(3) * delta[:, None]
+    moved = (np.minimum(2, 2 * (d * ng + nf * d + d * d) / na)
+             + np.minimum(2, 2 * (d * ng + nh * d + d * d) / nb)
+             + np.minimum(2, 2 * d / ng))
+    eps = float(np.finfo(np.float32).eps)
+    return moved + INT16_FLOAT32_ALLOWANCE + 16 * eps * (nf * ng / na + nh * ng / nb)
+
+
+def int16_excess(got: np.ndarray, exact: np.ndarray, coords: np.ndarray, labels,
+                 chunk: int) -> dict:
+    """How far the int16 features pass their derived bound (<= 0 holds), by
+    feature family, and the largest errors and bounds. A chunk's coordinate
+    moves by at most its quantization_step per axis, plus the float32
+    rounding of the dequantized value."""
+    from deep_cartograph_torch.io.upload import quantization_step, quantize_coords
+
+    delta = np.empty(coords.shape[0])
+    eps = float(np.finfo(np.float32).eps)
+    for s in range(0, coords.shape[0], chunk):
+        block = coords[s:s + chunk]
+        delta[s:s + chunk] = (quantization_step(quantize_coords(block)[1])
+                              + 2 * eps * float(np.abs(block).max()))
+    dist = [i for i, lab in enumerate(labels) if lab.startswith("dist-")]
+    out = {"delta_max": float(delta.max())}
+    # a distance (nm) moves by at most 0.1 x 2 sqrt(3) delta
+    bound = 0.1 * 2 * np.sqrt(3) * delta[:, None] + INT16_FLOAT32_ALLOWANCE
+    err = np.abs(got[:, dist] - exact[:, dist])
+    out.update(dist_err=float(err.max()), dist_bound=float(bound.max()),
+               dist_excess=float((err - bound).max()))
+    for kind in ("sin", "cos"):
+        cols = [i for i, lab in enumerate(labels) if lab.startswith(kind + "-")]
+        quads = np.array([[int(e.rsplit("_", 1)[1]) - 1 for e in labels[i].split("-")[1:]]
+                          for i in cols])
+        bound = dihedral_error_bound(coords, quads, delta)
+        err = np.abs(got[:, cols] - exact[:, cols])
+        out.update({f"{kind}_err": float(err.max()),
+                    f"{kind}_bound_at_max_err": float(bound.flat[np.argmax(err)]),
+                    f"{kind}_excess": float((err - bound).max())})
+    return out
+
+
+def htica_fits(ctx: dict, coords: np.ndarray, card: str, device="cuda") -> dict:
+    """fit, fit_fused and fit_chunked of the streaming HTICA at phase 4's
+    shape (the first 20,000 frames, the first 580 kept features, 10
+    subspaces x 5, lag 10), on blocks featurized through K1 from
+    coordinates on the card and normalized there."""
+    import torch
+
+    from deep_cartograph_torch.cv.htica_stream import StreamingHTICA
+    from deep_cartograph_torch.geom.kernels import PlanEvaluator
+    from deep_cartograph_torch.features.grammar import compile_plan
+    from deep_cartograph_torch.io.topology import Topology
+
+    labels = make_labels(N_ATOMS)
+    names = ctx["kept"][:HTICA_STREAM_FEATURES]
+    evaluator = PlanEvaluator(compile_plan(labels, Topology.from_pdb(ctx["pdb_path"])),
+                              device=device)
+    index = {lab: i for i, lab in enumerate(labels)}
+    frames = torch.as_tensor(coords[:COLVARS_FRAMES], device=device)
+    cols = torch.as_tensor([index[n] for n in names], device=device)
+    whole = evaluator.eval_raw(frames).index_select(1, cols)
+    mean, std = whole.mean(0), whole.std(0)
+    normalized = ((whole - mean) / std).double().cpu().numpy()
+    del whole
+
+    def block_fn(start, frames, cols, mean, std):
+        rows = start + torch.arange(HTICA_BLOCK, device=frames.device)
+        block = evaluator.eval_raw(frames.index_select(0, rows)).index_select(1, cols)
+        return (block - mean) / std
+
+    args = (frames, cols, mean, std)
+
+    def estimator():
+        return StreamingHTICA(len(names), LINEAR_CONFIG["num_subspaces"],
+                              LINEAR_CONFIG["subspaces_dimension"], 2,
+                              LINEAR_CONFIG["lag_time"], device=device)
+
+    def fit(est):
+        est.fit(lambda: (block_fn(torch.tensor(s, device=device), *args)
+                         for s in range(0, COLVARS_FRAMES, HTICA_BLOCK)))
+
+    out: dict = {}
+    runs = {}
+    for method, call in (
+        ("fit", fit),
+        ("fit_fused", lambda est: est.fit_fused(lambda start: block_fn(start, *args),
+                                                COLVARS_FRAMES, HTICA_BLOCK)),
+        ("fit_chunked", lambda est: est.fit_chunked(
+            block_fn, COLVARS_FRAMES, HTICA_BLOCK,
+            blocks_per_dispatch=HTICA_BLOCKS_PER_DISPATCH, block_args=args)),
+    ):
+        est = estimator()
+        _, out[f"htica_{method}_s"] = synced(lambda: call(est), device)
+        runs[method] = (est, normalized @ est.weights)
+    ref, ref_proj = runs["fit"]
+    check(bool(np.isfinite(ref_proj).all()), "streaming HTICA projection finite")
+    out["htica_eigenvalues"] = np.asarray(ref.eigenvalues_).tolist()
+    for method in ("fit_fused", "fit_chunked"):
+        est, proj = runs[method]
+        out[f"htica_{method}_eigenvalue_err"] = float(
+            np.abs(np.asarray(est.eigenvalues_) - ref.eigenvalues_).max())
+        out[f"htica_{method}_projection_err"] = float(np.abs(proj - ref_proj).max())
+        check(max(out[f"htica_{method}_eigenvalue_err"],
+                  out[f"htica_{method}_projection_err"]) <= FUSED_TOL,
+              f"{method} within {FUSED_TOL} of fit "
+              f"({out[f'htica_{method}_eigenvalue_err']}, "
+              f"{out[f'htica_{method}_projection_err']})")
+    log(f"[{card}] streaming HTICA on blocks featurized through K1 ({COLVARS_FRAMES} x "
+        f"{len(names)}, blocks of {HTICA_BLOCK}): fit {out['htica_fit_s']:.2f} s, "
+        f"fit_fused {out['htica_fit_fused_s']:.2f} s, fit_chunked "
+        f"({HTICA_BLOCKS_PER_DISPATCH} blocks a graph) {out['htica_fit_chunked_s']:.2f} s; "
+        f"against fit: fused {out['htica_fit_fused_projection_err']:.3g}, chunked "
+        f"{out['htica_fit_chunked_projection_err']:.3g}")
+    return out
+
+
+def demo_and_plumed(tmp: str, card: str, device="cuda") -> dict:
+    """One demo dataset materialized, one of its systems featurized (DCD
+    prefetch, K1) against the CPU and float64 numpy; the PLUMED driver run
+    on an exported input where PLUMED is installed."""
+    import glob
+    import zipfile
+
+    from deep_cartograph_torch.cv import cv_calculators_map
+    from deep_cartograph_torch.geom.engine import Featurizer
+    from deep_cartograph_torch.io.dcd import read_dcd
+    from deep_cartograph_torch.io.topology import Topology
+    from deep_cartograph_torch.plumed.cli import (
+        get_driver_command,
+        plumed_available,
+        run_plumed,
+    )
+    from deep_cartograph_torch.utils.demo_data import CALPHA_SYSTEMS, materialize
+
+    out: dict = {}
+    root = os.path.join(tmp, "demo")
+    _, out["demo_materialize_s"] = synced(lambda: materialize(root, [DEMO_DATASET]),
+                                          device)
+    folder = os.path.join(root, DEMO_DATASET, "input", DEMO_SYSTEM)
+    dcd, pdb = (os.path.join(folder, f"{DEMO_SYSTEM}.{ext}") for ext in ("dcd", "pdb"))
+    n_res = CALPHA_SYSTEMS[DEMO_SYSTEM][2]
+    labels = [f"dist-@CA_{i}-@CA_{j}" for i in range(1, n_res + 1)
+              for j in range(i + 1, n_res + 1)]
+    top = Topology.from_pdb(pdb)
+    feats, out["demo_featurize_s"] = synced(
+        lambda: Featurizer(top, labels, device=device).featurize_trajectory(dcd), device)
+    cpu = Featurizer(top, labels, device="cpu").featurize_trajectory(dcd)
+    out["demo_err_vs_cpu"] = float(np.abs(feats - cpu).max())
+    out["demo_err_vs_numpy"] = float(np.abs(feats - numpy_features(read_dcd(dcd),
+                                                                    labels)).max())
+    check(feats.shape == (200, len(labels))
+          and max(out["demo_err_vs_cpu"], out["demo_err_vs_numpy"]) <= 1e-5,
+          f"demo features match the CPU and numpy ({out['demo_err_vs_cpu']}, "
+          f"{out['demo_err_vs_numpy']})")
+
+    out["plumed_available"] = plumed_available()
+    if out["plumed_available"]:
+        calc = cv_calculators_map["pca"]({"dimension": 2, "features_normalization":
+                                          "mean_std", "training": {"plot_loss": False}},
+                                         os.path.join(tmp, "demo_cv"), device=device)
+        calc._set_training_data(feats, None, labels)
+        calc.ref_topology_path = pdb
+        calc.run()
+        export = os.path.join(tmp, "demo_plumed")
+        os.makedirs(export)
+        calc.write_plumed_files(pdb, export)
+        for archive in glob.glob(os.path.join(export, "*.zip")):
+            with zipfile.ZipFile(archive) as zf:
+                zf.extractall(export)
+        plumed_input = sorted(glob.glob(os.path.join(export, "plumed_input_*.dat")))[0]
+        (stdout, stderr), out["plumed_driver_s"] = synced(lambda: run_plumed(
+            get_driver_command(plumed_input, dcd, top.n_atoms), working_dir=export),
+            device)
+        check(stdout is not None, f"the PLUMED driver ran {plumed_input}")
+        log(f"[{card}] plumed driver on {os.path.basename(plumed_input)}: "
+            f"{out['plumed_driver_s']:.2f} s")
+    else:
+        log(f"[{card}] plumed driver not run: no plumed binary on this machine")
+    log(f"[{card}] demo {DEMO_DATASET} materialized in {out['demo_materialize_s']:.2f} s; "
+        f"{DEMO_SYSTEM} ({len(labels)} distances x 200 frames) featurized in "
+        f"{out['demo_featurize_s'] * 1e3:.1f} ms (against the CPU "
+        f"{out['demo_err_vs_cpu']:.3g})")
+    return out
+
+
+def native_io(ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
+              device="cuda") -> dict:
+    """Phase 10: the native host I/O and transport (the kernels' counts
+    zeroed before and read after): the main path's DCD featurized again with
+    int16 upload and held to the float32 features within the derived bound;
+    phase 4's colvars file written and read natively with the memory cache
+    on; the batch dip test over the kept features; the streaming HTICA's
+    fit, fit_fused and fit_chunked on blocks featurized through K1; one demo
+    dataset; the PLUMED driver."""
+    import torch
+
+    from deep_cartograph_torch.geom.engine import Featurizer, auto_chunk_size
+    from deep_cartograph_torch.io import colvars
+    from deep_cartograph_torch.io.topology import Topology
+    from deep_cartograph_torch.stats.descriptors import (
+        dip_pvalues,
+        dip_pvalues_plain,
+        dip_statistics_batch,
+    )
+    from deep_cartograph_torch.stats.dip import dip_statistic
+
+    labels = make_labels(N_ATOMS)
+    out: dict = {}
+    for st in stats:
+        st.launches = 0
+
+    # 1. int16 transport on the main path's DCD (prefetch reader, K1).
+    featurizer = Featurizer(Topology.from_pdb(ctx["pdb_path"]), labels, device=device)
+    int16, out["featurize_int16_s"] = synced(lambda: featurizer.featurize_trajectory(
+        ctx["dcd_path"], frame_chunk=CHUNK, upload="int16"), device)
+    _, out["featurize_float32_s"] = synced(lambda: featurizer.featurize_trajectory(
+        ctx["dcd_path"], frame_chunk=CHUNK, upload="float32"), device)
+    chunk = auto_chunk_size(CHUNK, N_ATOMS, len(labels))
+    out.update({f"int16_{k}": v for k, v in int16_excess(
+        int16, ctx["features"], coords, labels, chunk).items()})
+    log(f"[{card}] featurize with int16 upload {out['featurize_int16_s']:.3f} s "
+        f"(float32 again {out['featurize_float32_s']:.3f} s); coordinates moved by at "
+        f"most {out['int16_delta_max']:.3g} A; against float32: distances "
+        f"{out['int16_dist_err']:.3g} nm (bound {out['int16_dist_bound']:.3g}), sin "
+        f"{out['int16_sin_err']:.3g} (its bound {out['int16_sin_bound_at_max_err']:.3g}), "
+        f"cos {out['int16_cos_err']:.3g} (its bound "
+        f"{out['int16_cos_bound_at_max_err']:.3g})")
+    check(int16.shape == ctx["features"].shape and all(
+        out[f"int16_{k}_excess"] <= 0 for k in ("dist", "sin", "cos")),
+        "int16 features within the quantization bound of the float32 features")
+    del int16
+
+    # 2. Phase 4's colvars file, natively, with the memory cache on.
+    saved = os.environ.pop("DEEP_CARTO_COLVARS_CACHE_BYTES", None)
+    try:
+        path = os.path.join(tmp, "colvars_native.dat")
+        rows = ctx["features"][:COLVARS_FRAMES]
+        data = np.column_stack([np.arange(COLVARS_FRAMES, dtype=np.float32), rows])
+        names = ["time"] + labels
+        colvars.clear_memory_cache()
+        _, out["colvars_write_s"] = synced(lambda: colvars.write_colvars(
+            path, data, names, fmt=COLVARS_FMT), device)
+        out["colvars_mb"] = os.path.getsize(path) / 1e6
+        (cached, _), out["colvars_cached_read_s"] = synced(
+            lambda: colvars.read_features_matrix(path), device)
+        colvars.clear_memory_cache()
+        (cold, cold_names), out["colvars_read_s"] = synced(
+            lambda: colvars.read_features_matrix(path), device)
+        check(cold_names == labels and np.array_equal(cold.view(np.uint32),
+                                                      cached.view(np.uint32)),
+              "the cold read of the native file equals the cached read bit for bit")
+        out["colvars_max_abs_err"] = float(np.abs(cold - rows).max())
+        check(out["colvars_max_abs_err"] <= COLVARS_TOL,
+              f"colvars values within {COLVARS_TOL}")
+        plain = os.path.join(tmp, "colvars_plain.dat")
+        _, out["colvars_plain_write_s"] = synced(lambda: colvars.write_colvars_plain(
+            plain, data[:COLVARS_PLAIN_ROWS], names, fmt=COLVARS_FMT), device)
+        with open(plain, "rb") as fh:
+            plain_bytes = fh.read()
+        with open(path, "rb") as fh:
+            native_head = fh.read(len(plain_bytes))
+        check(native_head == plain_bytes, f"the first {COLVARS_PLAIN_ROWS} rows of the "
+              "native file equal the Python writer's bytes")
+        body = plain_bytes[plain_bytes.index(b"\n") + 1:]
+        _, out["colvars_plain_read_s"] = synced(
+            lambda: colvars.parse_body_plain(body, len(names)), device)
+        plain_mb = len(plain_bytes) / 1e6
+        out["colvars_write_mb_s"] = out["colvars_mb"] / out["colvars_write_s"]
+        out["colvars_read_mb_s"] = out["colvars_mb"] / out["colvars_read_s"]
+        out["colvars_plain_write_mb_s"] = plain_mb / out["colvars_plain_write_s"]
+        out["colvars_plain_read_mb_s"] = plain_mb / out["colvars_plain_read_s"]
+        del cached, cold
+    finally:
+        colvars.clear_memory_cache()
+        if saved is not None:
+            os.environ["DEEP_CARTO_COLVARS_CACHE_BYTES"] = saved
+    log(f"[{card}] native colvars {COLVARS_FRAMES} x {data.shape[1]} "
+        f"({out['colvars_mb']:.1f} MB): write {out['colvars_write_s']:.2f} s "
+        f"({out['colvars_write_mb_s']:.1f} MB/s), cold read {out['colvars_read_s']:.2f} s "
+        f"({out['colvars_read_mb_s']:.1f} MB/s), cached read "
+        f"{out['colvars_cached_read_s'] * 1e3:.1f} ms; plain on {COLVARS_PLAIN_ROWS} rows: "
+        f"write {out['colvars_plain_write_mb_s']:.1f} MB/s, loadtxt "
+        f"{out['colvars_plain_read_mb_s']:.1f} MB/s")
+
+    # 3. The batch dip test over the kept features; 16 held to the Python dip.
+    kept = ctx["kept_features"].cpu().numpy()
+    pvalues, out["dip_batch_s"] = synced(lambda: dip_pvalues(kept), device)
+    some = kept[:, :DIP_PLAIN_FEATURES]
+    plain_p, out["dip_plain_s"] = synced(lambda: dip_pvalues_plain(some), device)
+    dips = dip_statistics_batch(some)
+    out["dip_features"] = kept.shape[1]
+    out["dip_stat_err"] = float(max(abs(d - dip_statistic(some[:, j]))
+                                    for j, d in enumerate(dips)))
+    out["dip_pvalue_err"] = float(np.abs(pvalues[:DIP_PLAIN_FEATURES] - plain_p).max())
+    check(pvalues.shape == (kept.shape[1],) and bool(np.isfinite(pvalues).all())
+          and max(out["dip_stat_err"], out["dip_pvalue_err"]) <= DIP_TOL,
+          f"the dip batch matches the Python dip ({out['dip_stat_err']}, "
+          f"{out['dip_pvalue_err']})")
+    log(f"[{card}] dip test: batch over {kept.shape[1]} features x {kept.shape[0]} "
+        f"frames {out['dip_batch_s']:.2f} s; the Python dip on {DIP_PLAIN_FEATURES} "
+        f"{out['dip_plain_s']:.2f} s (p-values within {out['dip_pvalue_err']:.3g})")
+    del kept
+
+    # 4. The streaming HTICA on generated blocks; 5. demo data and PLUMED.
+    out.update(htica_fits(ctx, coords, card, device))
+    out.update(demo_and_plumed(tmp, card, device))
+    out["launches"] = {st.name: st.launches for st in stats}
+    if device == "cuda":
+        check(out["launches"]["pair_distances_kernel"] > 0, "K1 ran in phase 10")
+        torch.cuda.empty_cache()
+    log(json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2508,6 +2877,16 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     log(f"built {len(build.SOURCES)} kernels in {time.perf_counter() - t0:.1f} s")
+    # The host C++ (XTC codec, colvars text, DCD prefetch, dip batch), built
+    # here so that no step below times a first-use compile.
+    from deep_cartograph_torch.io import colvars, dcd, xtc
+    from deep_cartograph_torch.stats import descriptors
+
+    host_sources = [xtc._CODEC_SOURCE, colvars._SOURCE, dcd._SOURCE,
+                    descriptors._DIP_SOURCE]
+    t0 = time.perf_counter()
+    build.build_host_all(host_sources)
+    log(f"built {len(host_sources)} host libraries in {time.perf_counter() - t0:.1f} s")
 
     coords = make_trajectory(N_FRAMES, N_ATOMS)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2534,11 +2913,13 @@ def main() -> int:
         inputs_and_clustering = phase7(calc, coords, ctx, tmp, stats, card)
         geometry_and_umap = phase8(ctx, tmp, stats, card)
         pipeline_run = pipeline(coords, tmp, stats, card)
+        native = native_io(ctx, coords, tmp, stats, card)
         del ctx
     epochs = result["epoch_s"]
     log(f"[{card}] featurize {N_FRAMES / result['featurize_s']:.0f} frames/s "
         f"({result['featurize_s']:.3f} s, host decode alone "
-        f"{result['decode_s']:.3f} s), upload {result['upload_s']:.3f} s, "
+        f"{result['decode_s']:.3f} s, by read_dcd slices {result['decode_slices_s']:.3f} s), "
+        f"upload {result['upload_s']:.3f} s, "
         f"stats (entropy + std) {result['stats_s']:.3f} s, filter "
         f"{result['filter_s'] * 1e3:.1f} ms (again {result['filter_again_s'] * 1e3:.1f} ms) "
         f"({result['n_kept']} of 1171 kept), data to the calculator "
@@ -2581,7 +2962,8 @@ def main() -> int:
                    "autoencoders": phase6["launches"][rec["name"]],
                    "inputs_and_clustering": inputs_and_clustering["launches"][rec["name"]],
                    "geometry": geometry_and_umap["launches"][rec["name"]],
-                   "pipeline": pipeline_run["launches"][rec["name"]]}
+                   "pipeline": pipeline_run["launches"][rec["name"]],
+                   "native_io": native["launches"][rec["name"]]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
         rec["kernel_ms"] = rec["ms"]

@@ -25,6 +25,7 @@ Differences, on purpose:
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import logging
 import os
@@ -142,7 +143,11 @@ class CVCalculator:
         temp_model_path = os.path.join(output_path, "model")
         # The unzip folder is shared by every load into `output_path`; a
         # calculator loaded before and not yet collected leaves its files
-        # there, which would merge into this model's copy.
+        # there, which would merge into this model's copy. One that is
+        # garbage in a reference cycle would delete the folder when the
+        # collector reaches it, perhaps while this load copies it: collect
+        # such calculators first.
+        gc.collect()
         shutil.rmtree(temp_model_path, ignore_errors=True)
         unzip_files(model_path, output_path)
 

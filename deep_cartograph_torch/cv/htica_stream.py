@@ -28,8 +28,14 @@ the host (default when 8 * dim <= D), or by LAPACK's generalized subset
 routine on the host over the packed covariance triangles.
 DC_HTICA_SOLVER=auto|device|host picks the route; another value raises.
 
-Not ported here: `fit_fused`, `fit_chunked` (device block generators,
-ROADMAP Queue 1) and the `mesh` argument (Queue 1 item 8).
+`fit_fused` and `fit_chunked` take a block generator `block_fn(start,
+*block_args)` that evaluates a block on the device from a start index held
+in a 0-dim device tensor (device-resident features, or coordinates
+featurized through K1). On the card, the body of one pass (`fit_fused`) or
+of `blocks_per_dispatch` blocks (`fit_chunked`) is captured once as a CUDA
+graph and replayed with the start index rewritten in place; on the CPU the
+same body runs eagerly. Not ported here: the `mesh` argument (ROADMAP
+Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -67,16 +73,23 @@ def _accumulate_moments(state: dict, x_t: torch.Tensor, x_lag: torch.Tensor,
     if shift is not None:
         x_t = x_t - shift
         x_lag = x_lag - shift
+    _add_pair_moments(state, x_t, x_lag, n_sub, sub_d)
+    return state
+
+
+def _add_pair_moments(state: dict, x_t: torch.Tensor, x_lag: torch.Tensor,
+                      n_sub: int, sub_d: int, weight=None) -> None:
+    """Add the raw moments of one group of float64 time-lagged pairs to
+    `state` in place, each times `weight` (a 0-dim tensor) if given; no
+    host sync, so a CUDA graph can capture it."""
     b = x_t.shape[0]
     xt = x_t.reshape(b, n_sub, sub_d).transpose(0, 1)   # (S, b, D)
     xl = x_lag.reshape(b, n_sub, sub_d).transpose(0, 1)
     cross = xt.transpose(1, 2) @ xl                      # (S, D, D)
-    state["n"] += b
-    state["s1"] += xt.sum(1)
-    state["s1l"] += xl.sum(1)
-    state["s0"] += xt.transpose(1, 2) @ xt
-    state["st"] += 0.5 * (cross + cross.transpose(1, 2))
-    return state
+    terms = {"n": b, "s1": xt.sum(1), "s1l": xl.sum(1), "s0": xt.transpose(1, 2) @ xt,
+             "st": 0.5 * (cross + cross.transpose(1, 2))}
+    for key, term in terms.items():
+        state[key] += term if weight is None else weight * term
 
 
 def _moments_to_covs(state: dict):
@@ -285,6 +298,7 @@ class StreamingHTICA:
         self.lag = lag_time
         self.reg = reg
         self.level1: Optional[np.ndarray] = None   # (S, D, sub_out)
+        self._level1_t: Optional[torch.Tensor] = None
         self.weights: Optional[np.ndarray] = None  # (F, cv_dim)
         self.eigenvalues_: Optional[np.ndarray] = None
 
@@ -332,29 +346,169 @@ class StreamingHTICA:
         """make_block_iter: a callable returning a fresh iterator of
         (frames, n_features) blocks, called once per pass; None items are
         segment breaks."""
-        c0, ctau, _ = _moments_to_covs(self._pass(make_block_iter, self.n_sub,
-                                                  self.sub_d))
+        self._solve_level1(self._pass(make_block_iter, self.n_sub, self.sub_d), "")
+        self._solve_level2(self._pass(make_block_iter, 1, self._z_dim, self._project))
+
+    @property
+    def _z_dim(self) -> int:
+        return self.n_sub * self.sub_out
+
+    def _project(self, x: torch.Tensor) -> torch.Tensor:
+        """(b, n_features) through the level-1 transform: (b, S * sub_out)."""
+        xs = x.reshape(x.shape[0], self.n_sub, self.sub_d).transpose(0, 1)
+        return (xs @ self._level1_t).transpose(0, 1).reshape(x.shape[0], self._z_dim)
+
+    def _solve_level1(self, state: dict, how: str) -> None:
+        c0, ctau, _ = _moments_to_covs(state)
         evals1, self.level1 = _run_batched_tica(c0, ctau, self.reg, self.sub_out)
-        logger.info("StreamingHTICA level 1: %d subspaces x %d -> %d dims "
-                    "(top eigenvalue %.4f)", self.n_sub, self.sub_d, self.sub_out,
+        self._level1_t = torch.as_tensor(self.level1, device=self.device)
+        logger.info("StreamingHTICA%s level 1: %d subspaces x %d -> %d dims "
+                    "(top eigenvalue %.4f)", how, self.n_sub, self.sub_d, self.sub_out,
                     float(evals1[:, 0].max()))
 
-        level1 = torch.as_tensor(self.level1, device=self.device)
-        z_dim = self.n_sub * self.sub_out
-
-        def project(x):
-            xs = x.reshape(x.shape[0], self.n_sub, self.sub_d).transpose(0, 1)
-            return (xs @ level1).transpose(0, 1).reshape(x.shape[0], z_dim)
-
-        c0_2, ctau_2, _ = _moments_to_covs(self._pass(make_block_iter, 1, z_dim,
-                                                      project))
-        w2, v2 = _run_batched_tica(c0_2, ctau_2, self.reg, z_dim)
+    def _solve_level2(self, state: dict) -> None:
+        c0_2, ctau_2, _ = _moments_to_covs(state)
+        w2, v2 = _run_batched_tica(c0_2, ctau_2, self.reg, self._z_dim)
         self.eigenvalues_ = w2[0, : self.cv_dim]
         level2 = v2[0][:, : self.cv_dim]
         # W = blockdiag(level1) @ level2, without the block diagonal
         l2 = level2.reshape(self.n_sub, self.sub_out, self.cv_dim)
         self.weights = np.einsum("sdo,soc->sdc", self.level1, l2).reshape(
             self.n_features, self.cv_dim)
+
+    def fit_fused(self, block_fn: Callable, n_frames: int, block_size: int) -> None:
+        """Fit from a device block generator, one program per pass.
+
+        `block_fn(start)` returns the (block_size, n_features) block of
+        frames [start, start + block_size), `start` being a 0-dim int64
+        tensor on the device. On the card each pass is one CUDA graph of
+        every block, so block_fn must be capturable: no host sync (no
+        `.item()`, no slicing by the tensor's value; `index_select` with
+        `start + torch.arange(block_size)` is) and no host data copied
+        up per call; where it is not, the method raises. Same estimator as
+        `fit` on the same frames: the first block's mean as shift, and the
+        lag pairs across every block seam.
+        """
+        if n_frames % block_size != 0:
+            raise ValueError("n_frames must divide evenly into block_size blocks for "
+                             "the fused path.")
+        if block_size <= self.lag:
+            raise ValueError("block_size must exceed lag_time.")
+        n_blocks = n_frames // block_size
+        self._fit_blocks(block_fn, (), n_blocks, block_size, n_blocks, " (fused)")
+
+    def fit_chunked(
+        self,
+        block_fn: Callable,
+        n_frames: int,
+        block_size: int,
+        blocks_per_dispatch: int = 8,
+        block_args: tuple = (),
+    ) -> None:
+        """Fit from a device block generator, one program per
+        `blocks_per_dispatch` blocks.
+
+        `block_fn(start, *block_args)` returns the (block_size, n_features)
+        block of frames [start, start + block_size), `start` being a 0-dim
+        int64 tensor on the device. On the card the body of
+        `blocks_per_dispatch` blocks is captured once as a CUDA graph and
+        replayed for every group of blocks with `start` rewritten in place,
+        so block_fn must be capturable (see `fit_fused`); where it is not,
+        the method raises. Each block adds its seam against the previous
+        block's last `lag` frames weighted by a has-carry flag, 0 only for
+        the first block, so every replay runs the same graph. Same estimator
+        as `fit`.
+        """
+        if n_frames % block_size != 0:
+            raise ValueError("n_frames must divide evenly into block_size blocks for "
+                             "the chunked path.")
+        n_blocks = n_frames // block_size
+        k = min(int(blocks_per_dispatch), n_blocks)
+        if k < 1 or n_blocks % k != 0:
+            raise ValueError(f"blocks_per_dispatch ({blocks_per_dispatch}) must divide "
+                             f"the {n_blocks}-block pass evenly.")
+        if block_size <= self.lag:
+            raise ValueError("block_size must exceed lag_time.")
+        self._fit_blocks(block_fn, tuple(block_args), n_blocks, block_size, k,
+                         f" (chunked, {k} blocks/dispatch)")
+
+    def _fit_blocks(self, block_fn, block_args, n_blocks, block_size, k, how) -> None:
+        def level1_block(start):
+            return block_fn(start, *block_args)
+
+        def level2_block(start):
+            return self._project(block_fn(start, *block_args))
+
+        self._solve_level1(self._block_pass(level1_block, n_blocks, block_size, k,
+                                            self.n_sub, self.sub_d), how)
+        self._solve_level2(self._block_pass(level2_block, n_blocks, block_size, k,
+                                            1, self._z_dim))
+
+    def _block_pass(self, block, n_blocks, block_size, k, n_sub, sub_d) -> dict:
+        """One pass of moments over `n_blocks` generated blocks, `k` blocks a
+        program: a CUDA graph replayed n_blocks / k times on the card, the
+        same body run eagerly on the CPU."""
+        lag, dev = self.lag, self.device
+        width = n_sub * sub_d
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.float64, device=dev)
+
+        start = torch.zeros((), dtype=torch.int64, device=dev)
+        state = _zero_state(n_sub, sub_d, dev)
+        state["n"] = zeros()
+        carry, has = zeros(lag, width), zeros()
+
+        def body(shift, state, carry, has, count):
+            for j in range(count):
+                blk = block(start + j * block_size).double() - shift
+                _add_pair_moments(state, carry, blk[:lag], n_sub, sub_d, weight=has)
+                _add_pair_moments(state, blk[:-lag], blk[lag:], n_sub, sub_d)
+                carry.copy_(blk[-lag:])
+                has.fill_(1.0)
+
+        def first_block():
+            first = block(start)
+            if tuple(first.shape) != (block_size, width):
+                raise ValueError(f"block_fn gave a block of shape {tuple(first.shape)}, "
+                                 f"expected {(block_size, width)}")
+            return first[:-lag].double().mean(0)
+
+        if dev.type != "cuda":
+            shift = first_block()
+            for c in range(0, n_blocks, k):
+                start.fill_(c * block_size)
+                body(shift, state, carry, has, k)
+            return state
+        # On the card: the shift, and one block's moments into a scratch state,
+        # on a side stream, are the warm-up that a capture needs.
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            shift = first_block()
+            scratch = _zero_state(n_sub, sub_d, dev)
+            scratch["n"] = zeros()
+            body(shift, scratch, zeros(lag, width), zeros(), 1)
+            del scratch
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                body(shift, state, carry, has, k)
+        except RuntimeError as exc:
+            raise RuntimeError("block_fn cannot be captured in a CUDA graph (it must "
+                               "not wait for the card): " + str(exc)) from exc
+        for c in range(0, n_blocks, k):
+            start.fill_(c * block_size)
+            graph.replay()
+        # A capture that kept a host copy or a Python value of an early call
+        # replays stale blocks: the last block's tail must equal an eager call.
+        start.fill_((n_blocks - 1) * block_size)
+        tail = block(start).double()[-lag:] - shift
+        if not torch.allclose(carry, tail, rtol=1e-5, atol=1e-6 * float(tail.abs().max())):
+            raise RuntimeError("block_fn replayed from a CUDA graph gives other blocks "
+                               "than called directly: it is not capturable")
+        return state
 
     def project_blocks(self, block_iter: Iterable) -> np.ndarray:
         """Streamed blocks through the final weights."""

@@ -20,6 +20,7 @@ from deep_cartograph_torch.features.grammar import compile_plan
 from deep_cartograph_torch.geom.kernels import PlanEvaluator
 from deep_cartograph_torch.io.topology import Topology
 from deep_cartograph_torch.io.traj import iter_frame_chunks
+from deep_cartograph_torch.io.upload import resolve_upload_mode, upload_coords
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -75,13 +76,17 @@ class Featurizer:
         traj_stride: int = 1,
         frame_chunk: int = 2048,
         timeout: Optional[float] = None,
+        upload: str = "auto",
     ) -> np.ndarray:
         """Stream a trajectory through the device chunk by chunk.
 
         Returns the (n_frames, n_features) matrix (nm / radians). `timeout`
         (seconds) bounds the wall clock like the reference's PLUMED
-        subprocess timeout.
+        subprocess timeout. `upload` picks the host-to-device transport:
+        "float32" (exact), "int16" (fixed point, half the bytes,
+        io/upload.py) or "auto" (DC_TPU_UPLOAD, float32 when unset).
         """
+        upload_mode = resolve_upload_mode(upload)
         chunk = auto_chunk_size(
             frame_chunk, self.topology.n_atoms, self.plan.n_features
         )
@@ -101,7 +106,13 @@ class Featurizer:
             # previous chunk's kernels) and for its own bytes; this chunk's
             # kernels are then only queued and run while the host decodes
             # the next chunk. Outputs stay on the device until one download
-            # at the end.
+            # at the end. An int16 upload quantizes the chunk on the host and
+            # dequantizes it on the device (io/upload.py). (The JAX package
+            # pads a short last chunk by repeating its last frame before
+            # quantizing: that moves no axis' minimum or maximum, so the
+            # unpadded chunk has the same codes.)
+            if upload_mode == "int16":
+                block = upload_coords(block, "int16", self.device)
             outputs.append(self.evaluator.eval_raw(block))
         if outputs:
             result = torch.cat(outputs).cpu().numpy()

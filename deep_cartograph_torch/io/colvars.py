@@ -8,24 +8,49 @@ Where the JAX package returns a pandas DataFrame, the port returns a
 float32 matrix with its column names (and, for multi-file reads, the file
 label of every row): the port imports no pandas.
 
-Parsing is numpy's `loadtxt` (the JAX package's fallback branch). The JAX
-package's OpenMP parser and formatter (native/colvars_io.cpp) are not
-ported; they join ROADMAP Queue 1 item 9 beside the native DCD reader.
+The text goes through the OpenMP parser and formatter of
+`io/csrc/colvars_io.cpp`, compiled by g++ at first use
+(`ops/build.py::load_host_library`); a failed build raises. The formatter
+writes a `%.Nf` format; any other format string goes through the Python
+writer. `parse_body_plain` (numpy's `loadtxt`) and `write_colvars_plain`
+(Python's `%` per row) are the plain versions the native routines are held
+to. They differ in one token: glibc prints a NaN whose sign bit is set as
+`-nan`, Python as `nan`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import io
 import logging
 import os
 import re
 import sys
 from collections import OrderedDict
+from pathlib import Path
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from deep_cartograph_torch.ops.build import load_host_library
+
 logger = logging.getLogger(__name__)
+
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "colvars_io.cpp"
+_F32P = ctypes.POINTER(ctypes.c_float)
+
+
+def _lib() -> ctypes.CDLL:
+    """The colvars text library, built on first use."""
+    lib = load_host_library(_SOURCE)
+    lib.colvars_parse.restype = ctypes.c_long
+    lib.colvars_parse.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
+                                  _F32P, ctypes.c_long]
+    lib.colvars_format_rt.restype = ctypes.c_long
+    lib.colvars_format_rt.argtypes = [_F32P, ctypes.c_long, ctypes.c_long, ctypes.c_int,
+                                      ctypes.c_void_p, ctypes.c_long, _F32P]
+    return lib
+
 
 # Drops the non-feature columns (labels, time, bias, walker).
 NON_FEATURE_REGEX = "^(?!.*labels)^(?!.*time)^(?!.*bias)^(?!.*walker)"
@@ -40,9 +65,10 @@ def _as_list(paths: Optional[Paths]) -> Optional[List[str]]:
 # ---------------------------------------------------------------------------
 # Same-run memory cache: a pipeline writes colvars text and its next steps
 # read it back. write_colvars caches the matrix as a reader will parse it
-# (the formatted text parsed by the same parser), so a cached read equals a
-# file read. Entries are checked against the file's (mtime_ns, size, inode,
-# last 64 bytes) and evicted least recently used past the byte cap.
+# (the formatter's round-trip floats: each emitted token parsed by the
+# parser's own routine), so a cached read equals a file read. Entries are
+# checked against the file's (mtime_ns, size, inode, last 64 bytes) and
+# evicted least recently used past the byte cap.
 # DEEP_CARTO_COLVARS_CACHE_BYTES (read at each call; default 2 GiB) sets the
 # cap; 0 disables the cache.
 # ---------------------------------------------------------------------------
@@ -122,7 +148,21 @@ def read_column_names(colvars_path: str, features_only: bool = False) -> List[st
 
 def _parse_body(body: bytes, n_cols: int) -> np.ndarray:
     """Parse a line-aligned byte slab of a colvars body to (rows, n_cols)
-    float32; '#' lines are skipped."""
+    float32 with the native parser; '#' and blank lines are skipped. Raises
+    on a row with fewer than n_cols numbers (or a token that is not one);
+    numbers past the n_cols-th of a row are not read."""
+    max_rows = body.count(b"\n") + 1
+    out = np.empty((max_rows, n_cols), np.float32)
+    rows = _lib().colvars_parse(body, len(body), n_cols, out.ctypes.data_as(_F32P),
+                                max_rows)
+    if rows < 0:
+        raise ValueError(f"a row of the colvars body does not hold {n_cols} numbers")
+    return out[:rows]
+
+
+def parse_body_plain(body: bytes, n_cols: int) -> np.ndarray:
+    """The plain version of `_parse_body` (numpy's loadtxt, which rounds
+    each token through float64)."""
     if not body.strip():
         return np.empty((0, n_cols), np.float32)
     out = np.loadtxt(io.BytesIO(body), comments="#", dtype=np.float32, ndmin=2)
@@ -526,6 +566,7 @@ def create_dataframe_from_files(
 # ---------------------------------------------------------------------------
 
 WRITE_CHUNK_ROWS = 4096
+_FIXED = re.compile(r"%\.(\d+)f")
 
 
 def write_colvars(
@@ -533,11 +574,52 @@ def write_colvars(
 ) -> None:
     """Write a PLUMED colvars file: '#! FIELDS ...' header, then one row per
     line, each value formatted with `fmt` and separated by a space (what
-    numpy's savetxt writes). With the memory cache on, the rows as a reader
-    will parse them are cached: each formatted chunk is parsed back."""
+    numpy's savetxt writes). A `%.Nf` format goes through the native
+    formatter, which also returns each value as a reader will parse it: with
+    the memory cache on, those values are cached. Another format goes
+    through `write_colvars_plain`."""
+    data = np.ascontiguousarray(data, np.float32)
+    match = _FIXED.fullmatch(fmt)
+    if match is None:
+        write_colvars_plain(path, data, column_names, fmt)
+        return
+    decimals = int(match.group(1))
+    rows, cols = data.shape
+    # Bytes per token from the data's magnitude: sign, integer digits, '.',
+    # decimals and a separator; a NaN or inf maximum takes the generous budget.
+    max_abs = max(abs(float(np.min(data, initial=0.0))),
+                  abs(float(np.max(data, initial=0.0))))
+    if not np.isfinite(max_abs):
+        int_digits = 40
+    elif max_abs >= 1.0:
+        int_digits = int(np.floor(np.log10(max_abs))) + 2
+    else:
+        int_digits = 2
+    capacity = rows * cols * max(decimals + int_digits + 4, decimals + 16) + 1024
+    out = np.empty(capacity, np.uint8)
+    cache = 0 < _cache_cap_bytes() and data.nbytes <= _cache_cap_bytes()
+    roundtrip = np.empty((rows, cols), np.float32) if cache else None
+    n = _lib().colvars_format_rt(
+        data.ctypes.data_as(_F32P), rows, cols, decimals, out.ctypes.data, capacity,
+        None if roundtrip is None else roundtrip.ctypes.data_as(_F32P),
+    )
+    if n < 0:
+        raise RuntimeError(f"the colvars formatter overran its {capacity}-byte buffer")
+    with open(path, "wb") as fh:
+        fh.write(("#! FIELDS " + " ".join(column_names) + "\n").encode())
+        fh.write(memoryview(out)[:n])
+    if roundtrip is not None:
+        _cache_put(path, column_names, roundtrip)
+
+
+def write_colvars_plain(
+    path: str, data: np.ndarray, column_names: List[str], fmt: str = "%.4f"
+) -> None:
+    """The plain version of `write_colvars`: Python's `%` row by row. With
+    the memory cache on, each formatted chunk is parsed back and cached."""
     data = np.ascontiguousarray(data, np.float32)
     row_fmt = " ".join([fmt] * data.shape[1]) + "\n"
-    cache = _cache_cap_bytes() > 0 and data.nbytes <= _cache_cap_bytes()
+    cache = 0 < _cache_cap_bytes() and data.nbytes <= _cache_cap_bytes()
     parsed: List[np.ndarray] = []
     with open(path, "wb") as fh:
         fh.write(("#! FIELDS " + " ".join(column_names) + "\n").encode())

@@ -1,8 +1,9 @@
-"""DCD trajectory codec (CHARMM/NAMD binary format), pure numpy.
+"""DCD trajectory codec (CHARMM/NAMD binary format).
 
-A copy of the JAX package's io/dcd.py (header, reader, writer), so the
-port imports nothing of the JAX package. The format is Fortran
-record-delimited: every record is framed by int32 byte counts.
+The header, the slice reader and the writer are numpy; the chunk reader
+`iter_dcd_chunks_prefetch` decodes on a native background thread
+(`io/csrc/dcdloader.cpp`, compiled by g++ at first use). The format is
+Fortran record-delimited: every record is framed by int32 byte counts.
 
 Layout:
   record 1: 'CORD' + 20 int32 control words (icntrl)
@@ -15,18 +16,32 @@ Layout:
 
 Reading and writing are vectorized over frames: the frame payloads are a
 fixed-stride byte array, viewed once per axis (no per-frame Python loop).
+
+The two readers count frames differently when the header's frame count
+disagrees with the body. The slice reader counts the complete frames of the
+body (at most the header's count when the body ends mid-frame). The native
+reader trusts a positive header count: it stops there on a longer body, and
+on a shorter one raises a DCDError in place of the chunk that holds the
+first missing frame; a count of 0 makes it count the body's frames.
 """
 
 from __future__ import annotations
 
+import ctypes
 import logging
 import os
 import struct
-from typing import Optional, Tuple
+from pathlib import Path
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from deep_cartograph_torch.ops.build import load_host_library
+
 logger = logging.getLogger(__name__)
+
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "dcdloader.cpp"
+_F32P = ctypes.POINTER(ctypes.c_float)
 
 
 class DCDError(ValueError):
@@ -170,3 +185,50 @@ def write_dcd(path: str, coords: np.ndarray, timestep_ps: float = 1.0) -> None:
         fh.write(rec(titles))
         fh.write(rec(struct.pack("<i", n_atoms)))
         fh.write(body.tobytes())
+
+
+def _lib() -> ctypes.CDLL:
+    """The prefetching DCD reader, built on first use."""
+    lib = load_host_library(_SOURCE)
+    lib.dcd_open.restype = ctypes.c_void_p
+    lib.dcd_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
+    lib.dcd_natoms.restype = ctypes.c_int
+    lib.dcd_natoms.argtypes = [ctypes.c_void_p]
+    lib.dcd_next_chunk.restype = ctypes.c_int
+    lib.dcd_next_chunk.argtypes = [ctypes.c_void_p, _F32P]
+    lib.dcd_close.restype = None
+    lib.dcd_close.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def iter_dcd_chunks_prefetch(
+    path: str, chunk: int, prefetch_depth: int = 2
+) -> Iterator[np.ndarray]:
+    """Yield (<=chunk, n_atoms, 3) float32 arrays, decoded on a native
+    background thread that keeps up to `prefetch_depth` chunks ahead, so
+    host decode overlaps the caller's device work. A big-endian file (the
+    header says so) is read by `read_dcd` slices instead. Abandoning the
+    generator stops and joins the thread."""
+    if chunk < 1 or prefetch_depth < 1:
+        raise ValueError(f"chunk ({chunk}) and prefetch_depth ({prefetch_depth}) "
+                         "must be positive")
+    _, n_frames, _, endian, _ = read_dcd_header(path)
+    if endian == ">":
+        for start in range(0, n_frames, chunk):
+            yield read_dcd(path, start, min(start + chunk, n_frames))
+        return
+    lib = _lib()
+    handle = lib.dcd_open(os.fsencode(path), chunk, prefetch_depth)
+    if not handle:
+        raise DCDError(f"The native DCD reader cannot open {path}")
+    try:
+        buf = np.empty((chunk, lib.dcd_natoms(handle), 3), np.float32)
+        while True:
+            n = lib.dcd_next_chunk(handle, buf.ctypes.data_as(_F32P))
+            if n == 0:
+                return
+            if n < 0:
+                raise DCDError(f"Native DCD decode error ({n}) in {path}")
+            yield buf[:n].copy()
+    finally:
+        lib.dcd_close(handle)

@@ -184,11 +184,16 @@ def iter_frame_chunks(
     topology_path: Optional[str] = None,
     stride: int = 1,
 ) -> Iterator[np.ndarray]:
-    """Yield (<=chunk, n_atoms, 3) arrays. XTC chunks decode on a background
-    thread (decode overlaps the caller's device work); DCD chunks are read
-    slice by slice; other formats are loaded once and sliced."""
+    """Yield (<=chunk, n_atoms, 3) arrays. DCD (at stride 1) and XTC chunks
+    decode on background threads (decode overlaps the caller's device
+    work); a DCD at another stride is read slice by slice; other formats are
+    loaded once and sliced."""
     suffix = Path(trajectory_path).suffix.lower()
-    if suffix == ".xtc":
+    if suffix == ".dcd" and stride == 1:
+        from deep_cartograph_torch.io.dcd import iter_dcd_chunks_prefetch
+
+        yield from iter_dcd_chunks_prefetch(trajectory_path, chunk)
+    elif suffix == ".xtc":
         from deep_cartograph_torch.io.xtc import iter_xtc_chunks_prefetch
 
         yield from iter_xtc_chunks_prefetch(trajectory_path, chunk, stride=stride)

@@ -4,8 +4,11 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 Hopper (`sm_90a`) into its own shared library, loaded with ctypes. Nothing is
 built at import: a kernel is built at its first launch, or all of them
 together by `build_all()` (one `nvcc` process per source, run in parallel).
-Host C++ sources (the XTC codec, `io/csrc/xdrcodec.cpp`) are compiled by
-`g++` with OpenMP at first use through `load_host_library`.
+Host C++ sources (the XTC codec `io/csrc/xdrcodec.cpp`, the colvars text
+parser and formatter `io/csrc/colvars_io.cpp`, the prefetching DCD reader
+`io/csrc/dcdloader.cpp`, the batch dip test `stats/csrc/diptest.cpp`) are
+compiled by `g++` with OpenMP at first use through `load_host_library`,
+each into a library of its own; a failed build raises.
 
 Libraries go to `ops/_build/` next to this file, named by a hash of the
 source and the flags. Each build writes a temporary file that `os.replace`
@@ -112,21 +115,30 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     return paths
 
 
+def build_host_all(sources: Iterable[Path]) -> None:
+    """Compile every host C++ source in `sources` that is not built yet, all
+    `g++` processes at once; raises with the compiler output if one fails."""
+    pending = [src for src in sources if not _library_path(src, HOST_FLAGS).exists()]
+    if not pending:
+        return
+    compiler = shutil.which("g++")
+    if compiler is None:
+        raise RuntimeError(f"g++ not found; {pending[0].name} is compiled at first use.")
+    builds = [(src, _start_build(compiler, HOST_FLAGS, src)) for src in pending]
+    errors = [f"g++ failed for {src.name}:\n{log}" for src, build in builds
+              if (log := _finish_build(*build)) is not None]
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 def load_host_library(src: Path) -> ctypes.CDLL:
     """The ctypes handle of host C++ source `src`, compiled by `g++` on first
     use; raises with the compiler output if the build fails."""
     key = str(src)
     lib = _loaded.get(key)
     if lib is None:
-        out = _library_path(src, HOST_FLAGS)
-        if not out.exists():
-            compiler = shutil.which("g++")
-            if compiler is None:
-                raise RuntimeError(f"g++ not found; {src.name} is compiled at first use.")
-            log = _finish_build(*_start_build(compiler, HOST_FLAGS, src))
-            if log is not None:
-                raise RuntimeError(f"g++ failed for {src.name}:\n{log}")
-        lib = ctypes.CDLL(str(out))
+        build_host_all([src])
+        lib = ctypes.CDLL(str(_library_path(src, HOST_FLAGS)))
         _loaded[key] = lib
     return lib
 

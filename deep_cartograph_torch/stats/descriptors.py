@@ -9,19 +9,26 @@ package exactly: float32 `(x - min) / span * num_bins`, truncated, clipped
 to the last bin, with span 1 for a constant feature.
 
 Statistics the filter reads are rounded to 3 decimals on the host, as in
-the reference. The dip test (`dip_pvalues`) runs on the host in numpy, one
-feature at a time; the JAX package's native batch routine comes with
-ROADMAP Queue 1 item 9 and the mesh sharding of feature blocks with item 8.
+the reference. The dip test (`dip_pvalues`) runs on the host: the dip
+statistics of all features at once through the OpenMP batch routine of
+`stats/csrc/diptest.cpp` (compiled by g++ at first use; a failed build
+raises), their p-values from the null table of `stats/dip.py`. The mesh
+sharding of feature blocks waits for ROADMAP Queue 1 item 8.
 """
 
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
 from typing import Dict, List, Union
 
 import numpy as np
 import torch
 
+from deep_cartograph_torch.ops.build import load_host_library
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
+
+_DIP_SOURCE = Path(__file__).resolve().parent / "csrc" / "diptest.cpp"
 
 Matrix = Union[np.ndarray, torch.Tensor]
 
@@ -123,12 +130,48 @@ def min_value_filter(
     return [bool(v <= threshold) for v in mins]
 
 
+def _host_matrix(features: Matrix) -> np.ndarray:
+    x = features.cpu().numpy() if isinstance(features, torch.Tensor) else features
+    return np.asarray(x)
+
+
+def dip_statistics_batch(features: Matrix) -> np.ndarray:
+    """Hartigan's dip statistic of every column of a (samples, features)
+    matrix, in float64, by the native batch routine (OpenMP over features)."""
+    lib = load_host_library(_DIP_SOURCE)
+    lib.dip_statistics_batch.restype = None
+    lib.dip_statistics_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_double),
+    ]
+    x = _host_matrix(features)
+    if x.ndim != 2:
+        raise ValueError(f"features must be (samples, features), got {x.shape}")
+    n_samples, n_features = x.shape
+    # the routine reads (features, samples) rows
+    cols = np.ascontiguousarray(x.T, dtype=np.float64)
+    out = np.empty(n_features, np.float64)
+    lib.dip_statistics_batch(cols.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                             n_features, n_samples,
+                             out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+    return out
+
+
 def dip_pvalues(features: Matrix) -> np.ndarray:
-    """Hartigan dip-test p-value of every feature (host, numpy)."""
+    """Hartigan dip-test p-value of every feature (host): the batch dip
+    statistics, each turned into a p-value by the null table."""
+    from deep_cartograph_torch.stats.dip import pvalue_from_dip
+
+    x = _host_matrix(features)
+    return np.asarray([pvalue_from_dip(d, x.shape[0]) for d in dip_statistics_batch(x)])
+
+
+def dip_pvalues_plain(features: Matrix) -> np.ndarray:
+    """The plain version of `dip_pvalues`: the Python dip, one feature at a
+    time."""
     from deep_cartograph_torch.stats.dip import dip_pvalue
 
-    x = features.cpu().numpy() if isinstance(features, torch.Tensor) else features
-    x = np.asarray(x)
+    x = _host_matrix(features)
     return np.asarray([dip_pvalue(x[:, j])[1] for j in range(x.shape[1])])
 
 

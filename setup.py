@@ -12,6 +12,7 @@ setup(
         "deep_cartograph_tpu": ["log_config/*.ini", "native/*.cpp",
                                 "default_config.yml"],
         "deep_cartograph_torch": ["ops/csrc/*.cu", "ops/csrc/*.cuh", "io/csrc/*.cpp",
+                                  "stats/csrc/*.cpp",
                                   "stats/dip_null_table.npz", "log_config/*.ini"],
     },
     python_requires=">=3.10",

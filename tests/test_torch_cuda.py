@@ -537,3 +537,82 @@ def test_umap_graph_and_one_epoch_on_the_card_match_the_cpu(cuda):
     # to 3 x its own spread over repeats and one-ulp input noise
     spread = max(np.abs(c - card[0]).max() for c in card)
     assert np.abs(card[0] - cpu).max() <= max(1e-5, 3 * spread)
+
+
+def test_int16_featurization_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The DCD read by the prefetching reader, sent as int16, dequantized on
+    the card and featurized through K1, against the same on the CPU."""
+    from deep_cartograph_torch.geom.engine import Featurizer
+    from deep_cartograph_torch.io.topology import Topology
+
+    pdb, dcd, _ = _ca_system(str(tmp_path))
+    labels = [f"dist-@CA_{i}-@CA_{j}" for i in range(1, 13) for j in range(i + 2, 13)]
+    labels += ["sin-@CA_1-@CA_2-@CA_3-@CA_4", "cos-@CA_5-@CA_6-@CA_7-@CA_8"]
+    top = Topology.from_pdb(pdb)
+    before = torch_pd.STATS.launches
+    card = Featurizer(top, labels).featurize_trajectory(dcd, frame_chunk=64, upload="int16")
+    assert torch_pd.STATS.launches == before + 7
+    cpu = Featurizer(top, labels, device="cpu").featurize_trajectory(
+        dcd, frame_chunk=64, upload="int16")
+    np.testing.assert_allclose(card, cpu, atol=1e-5, rtol=0)
+
+
+def _htica_blocks(n_frames=1200, n_feat=24, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n_frames, n_feat)).astype(np.float32)
+    return (np.cumsum(x, axis=0) / 10 + x).astype(np.float32)
+
+
+def _device_rows(x, start, size):
+    return x.index_select(0, start + torch.arange(size, device=x.device))
+
+
+@pytest.mark.parametrize("k", [1, 3, 12])
+def test_fit_chunked_graph_matches_eager(cuda, k):
+    """fit_chunked replays a CUDA graph of k blocks on the card; on the CPU
+    the same body runs eagerly. Both, and fit_fused and fit on the card,
+    give one estimator."""
+    from deep_cartograph_torch.cv.htica_stream import StreamingHTICA
+
+    x = _htica_blocks()
+    block = 100
+
+    def fitted(device, method, **kw):
+        est = StreamingHTICA(24, 4, 3, 2, lag_time=5, device=device)
+        xt = torch.as_tensor(x, device=device)
+        if method == "fit":
+            est.fit(lambda: (xt[s:s + block] for s in range(0, len(x), block)))
+        elif method == "fit_fused":
+            est.fit_fused(lambda start: _device_rows(xt, start, block), len(x), block)
+        else:
+            est.fit_chunked(lambda start, buf: _device_rows(buf, start, block), len(x),
+                            block, block_args=(xt,), **kw)
+        return est
+
+    graph = fitted("cuda", "fit_chunked", blocks_per_dispatch=k)
+    want = x @ graph.weights
+    for est in (fitted("cpu", "fit_chunked", blocks_per_dispatch=k),
+                fitted("cuda", "fit_fused"), fitted("cuda", "fit")):
+        np.testing.assert_allclose(graph.eigenvalues_, est.eigenvalues_, atol=1e-5)
+        # the CPU's and the card's eigensolvers may give opposite signs
+        np.testing.assert_allclose(_align_signs(x @ est.weights, want), want, atol=1e-5)
+
+
+def test_fit_chunked_refuses_a_block_fn_it_cannot_capture(cuda):
+    """A block_fn that waits for the card cannot be captured; one whose
+    blocks come from Python state replays stale blocks. Both raise."""
+    from deep_cartograph_torch.cv.htica_stream import StreamingHTICA
+
+    x = torch.as_tensor(_htica_blocks(), device="cuda")
+    est = StreamingHTICA(24, 4, 3, 2, lag_time=5)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        est.fit_chunked(lambda start: x[int(start):int(start) + 100], len(x), 100,
+                        blocks_per_dispatch=3)
+    calls = iter(range(10**6))
+
+    def from_python_state(start):
+        i = next(calls) % 12
+        return x[i * 100:(i + 1) * 100]
+
+    with pytest.raises(RuntimeError, match="not capturable"):
+        est.fit_chunked(from_python_state, len(x), 100, blocks_per_dispatch=3)

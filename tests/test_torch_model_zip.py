@@ -332,3 +332,36 @@ def test_sensitivity_structure_matches_jax(trained, cv):
         np.testing.assert_array_equal(ours > 0, theirs > 0)
     else:
         np.testing.assert_allclose(ours, theirs, atol=0.011)  # written with 2 decimals
+
+
+def test_a_collected_calculator_leaves_the_next_load_alone(trained, tmp_path,
+                                                           monkeypatch):
+    """A calculator loaded into a folder and then dropped inside a reference
+    cycle is removed by the garbage collector, whose finalizer deletes the
+    shared unzip folder. The collector may run at any allocation, here while
+    the next load copies that folder; the next load must still get all of
+    its model's files."""
+    import gc
+    import shutil
+
+    _, _, runs, _ = trained
+    folder = str(tmp_path / "shared")
+    stale = CVCalculator.load(runs["pca"]["port"][1], folder, device="cpu")
+    stale.cycle = stale
+    del stale
+    copytree = shutil.copytree
+
+    def collect_then_copy(*args, **kwargs):
+        gc.collect()
+        return copytree(*args, **kwargs)
+
+    monkeypatch.setattr(shutil, "copytree", collect_then_copy)
+    gc.disable()
+    try:
+        calc = CVCalculator.load(runs["tica"]["port"][1], folder, device="cpu")
+    finally:
+        gc.enable()
+    with zipfile.ZipFile(runs["tica"]["port"][1]) as zf:
+        want = sorted(os.path.relpath(m, "model") for m in zf.namelist())
+    assert calc.cv_name == "tica"
+    assert sorted(os.listdir(os.path.join(folder, "tica", "model"))) == want

@@ -439,3 +439,71 @@ def test_kernel_wrapper_takes_its_plain_version_only_for_cpu_tensors():
     CUDA tensor the wrapper launches its kernel, on any other it raises."""
     with pytest.raises(ValueError, match="Unsupported device"):
         pairwise_distance_matrix(torch.zeros((2, 4, 3), device="meta"))
+
+
+def test_native_io_entry_points_raise_without_cuda(no_cuda, ca_system):
+    """The int16 upload and the Featurizer of either transport resolve
+    device=None to CUDA; the host-only native readers take no device."""
+    from deep_cartograph_torch.io.traj import iter_frame_chunks
+    from deep_cartograph_torch.io.upload import upload_coords
+
+    block = ca_system.coords[:4]
+    top = Topology.from_pdb(ca_system.pdb_path)
+    labels = ["dist-@CA_1-@CA_5", "sin-@CA_1-@CA_2-@CA_3-@CA_4"]
+    for call in (
+        lambda: upload_coords(block),
+        lambda: upload_coords(block, "float32"),
+        lambda: Featurizer(top, labels).featurize_trajectory(ca_system.dcd_path,
+                                                             upload="int16"),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # asking for the host is the one way to run there
+    assert upload_coords(block, device="cpu").device.type == "cpu"
+    feats = Featurizer(top, labels, device="cpu").featurize_trajectory(
+        ca_system.dcd_path, upload="int16")
+    assert feats.shape == (60, 2)
+    assert sum(len(c) for c in iter_frame_chunks(ca_system.dcd_path, 16)) == 60
+
+
+NATIVE_SOURCES = {
+    "io/colvars.py": ("_SOURCE", "io/csrc/colvars_io.cpp"),
+    "io/dcd.py": ("_SOURCE", "io/csrc/dcdloader.cpp"),
+    "io/xtc.py": ("_CODEC_SOURCE", "io/csrc/xdrcodec.cpp"),
+    "stats/descriptors.py": ("_DIP_SOURCE", "stats/csrc/diptest.cpp"),
+}
+
+
+def test_native_code_is_the_ports_own_and_a_failed_build_raises(monkeypatch, tmp_path):
+    """Every host library is built from the port's own copy of its source,
+    and none has a numpy fallback: without a compiler, the colvars writer
+    and reader, the DCD prefetch reader and the dip test raise, naming their
+    source."""
+    import importlib
+
+    from deep_cartograph_torch.io import colvars, dcd
+    from deep_cartograph_torch.ops import build
+
+    for module, (attr, rel) in NATIVE_SOURCES.items():
+        mod = importlib.import_module("deep_cartograph_torch." + module[:-3].replace("/", "."))
+        assert str(getattr(mod, attr)) == os.path.join(PACKAGE_DIR, rel)
+        assert os.path.isfile(os.path.join(PACKAGE_DIR, rel))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    x = np.random.default_rng(0).normal(size=(20, 3)).astype(np.float32)
+    dcd_path = str(tmp_path / "t.dcd")
+    dcd.write_dcd(dcd_path, x.reshape(20, 1, 3))
+    colvars_path = str(tmp_path / "c.dat")
+    with open(colvars_path, "w") as fh:
+        fh.write("#! FIELDS a b c\n1 2 3\n")
+    colvars.clear_memory_cache()
+    for call, source in (
+        (lambda: colvars.write_colvars(str(tmp_path / "w.dat"), x, ["a", "b", "c"]),
+         "colvars_io.cpp"),
+        (lambda: colvars.read_features_matrix(colvars_path), "colvars_io.cpp"),
+        (lambda: next(dcd.iter_dcd_chunks_prefetch(dcd_path, 8)), "dcdloader.cpp"),
+        (lambda: descriptors.dip_pvalues(x), "diptest.cpp"),
+    ):
+        with pytest.raises(RuntimeError, match=f"g\\+\\+ not found; {source}"):
+            call()
