@@ -25,12 +25,12 @@ Differences, on purpose:
 from __future__ import annotations
 
 import copy
-import gc
 import json
 import logging
 import os
 import shutil
 import sys
+import tempfile
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -140,30 +140,31 @@ class CVCalculator:
 
         if not os.path.exists(model_path):
             raise FileNotFoundError(f"Model file not found: {model_path}")
-        temp_model_path = os.path.join(output_path, "model")
-        # The unzip folder is shared by every load into `output_path`; a
-        # calculator loaded before and not yet collected leaves its files
-        # there, which would merge into this model's copy. One that is
-        # garbage in a reference cycle would delete the folder when the
-        # collector reaches it, perhaps while this load copies it: collect
-        # such calculators first.
-        gc.collect()
-        shutil.rmtree(temp_model_path, ignore_errors=True)
-        unzip_files(model_path, output_path)
+        # Each load unzips into a folder of its own, which only its
+        # calculator's __del__ removes: loads into one `output_path` never
+        # share or delete each other's files.
+        os.makedirs(output_path, exist_ok=True)
+        unzip_folder = tempfile.mkdtemp(prefix="model_zip_", dir=output_path)
+        unzip_files(model_path, unzip_folder)
+        temp_model_path = os.path.join(unzip_folder, "model")
 
-        metadata_path = os.path.join(temp_model_path, "metadata.json")
-        cv_name = None
-        if os.path.exists(metadata_path):
-            with open(metadata_path) as fh:
-                cv_name = json.load(fh).get("cv_name")
-        if not cv_name:
-            raise ValueError("Could not determine the CV name from the model file.")
-        calculator_class = cv_calculators_map.get(cv_name)
-        if not calculator_class:
-            raise TypeError(f"Unknown CV calculator name: {cv_name}")
-        instance = calculator_class(output_path=output_path, device=device)
+        try:
+            metadata_path = os.path.join(temp_model_path, "metadata.json")
+            cv_name = None
+            if os.path.exists(metadata_path):
+                with open(metadata_path) as fh:
+                    cv_name = json.load(fh).get("cv_name")
+            if not cv_name:
+                raise ValueError("Could not determine the CV name from the model file.")
+            calculator_class = cv_calculators_map.get(cv_name)
+            if not calculator_class:
+                raise TypeError(f"Unknown CV calculator name: {cv_name}")
+            instance = calculator_class(output_path=output_path, device=device)
+        except BaseException:
+            shutil.rmtree(unzip_folder, ignore_errors=True)
+            raise
+        instance.temp_model_path = unzip_folder
         instance._load_from_folder(temp_model_path)
-        instance.temp_model_path = temp_model_path
         return instance
 
     def _load_from_folder(self, folder_path: str) -> None:

@@ -76,15 +76,17 @@ class Featurizer:
         traj_stride: int = 1,
         frame_chunk: int = 2048,
         timeout: Optional[float] = None,
-        upload: str = "auto",
+        upload: str = "float32",
     ) -> np.ndarray:
         """Stream a trajectory through the device chunk by chunk.
 
         Returns the (n_frames, n_features) matrix (nm / radians). `timeout`
         (seconds) bounds the wall clock like the reference's PLUMED
         subprocess timeout. `upload` picks the host-to-device transport:
-        "float32" (exact), "int16" (fixed point, half the bytes,
-        io/upload.py) or "auto" (DC_TPU_UPLOAD, float32 when unset).
+        "float32" (exact, the default), "int16" (fixed point, half the
+        bytes, io/upload.py) or "auto" (DC_TPU_UPLOAD, float32 when unset).
+        The setting is read only where a caller passes "auto": a
+        DC_TPU_UPLOAD set for a JAX run leaves the default exact.
         """
         upload_mode = resolve_upload_mode(upload)
         chunk = auto_chunk_size(

@@ -99,36 +99,45 @@ bool parse_header(DcdReader* r) {
     return true;
 }
 
-// Decode up to chunk_frames frames starting at next_frame into chunk.
+// Bytes read by one fread: whole frames, at least one.
+constexpr long kSlabBytes = 1L << 20;
+
+// Decode up to chunk_frames frames starting at next_frame into chunk,
+// reading whole frames a slab at a time and checking each record's markers.
 bool decode_chunk(DcdReader* r, Chunk* chunk) {
     int remaining = r->n_frames - r->next_frame;
     int n = remaining < r->chunk_frames ? remaining : r->chunk_frames;
     if (n <= 0) return false;
     const int A = r->n_atoms;
+    const long rec = 4L * A;
+    const long cell = r->has_cell ? 56 : 0;
     chunk->data.resize((size_t)n * A * 3);
     chunk->n_frames = n;
-    std::vector<float> axis(A);
     long base = r->header_size + (long)r->next_frame * r->frame_bytes;
     if (fseek(r->fh, base, SEEK_SET) != 0) { r->error = -2; return false; }
-    for (int f = 0; f < n; ++f) {
-        if (r->has_cell && fseek(r->fh, 56, SEEK_CUR) != 0) {
-            r->error = -2; return false;
+    long slab_frames = kSlabBytes / r->frame_bytes;
+    if (slab_frames < 1) slab_frames = 1;
+    std::vector<unsigned char> slab;
+    for (int f0 = 0; f0 < n; f0 += (int)slab_frames) {
+        int m = n - f0 < slab_frames ? n - f0 : (int)slab_frames;
+        slab.resize((size_t)m * r->frame_bytes);
+        if (!read_exact(r->fh, slab.data(), slab.size())) {
+            r->error = -3; return false;
         }
-        float* out = chunk->data.data() + (size_t)f * A * 3;
-        for (int d = 0; d < 3; ++d) {
-            int32_t len;
-            if (!read_exact(r->fh, &len, 4) || len != 4 * A) {
-                r->error = -3; return false;
+        for (int f = 0; f < m; ++f) {
+            const unsigned char* p = slab.data() + (size_t)f * r->frame_bytes + cell;
+            float* out = chunk->data.data() + (size_t)(f0 + f) * A * 3;
+            for (int d = 0; d < 3; ++d) {
+                int32_t len, end;
+                std::memcpy(&len, p, 4);
+                std::memcpy(&end, p + 4 + rec, 4);
+                if (len != rec || end != len) { r->error = -3; return false; }
+                // deinterleave: axis-major record -> (atom, xyz) layout
+                const unsigned char* axis = p + 4;
+                for (int a = 0; a < A; ++a)
+                    std::memcpy(out + a * 3 + d, axis + 4L * a, 4);
+                p += 8 + rec;
             }
-            if (!read_exact(r->fh, axis.data(), 4L * A)) {
-                r->error = -3; return false;
-            }
-            int32_t end;
-            if (!read_exact(r->fh, &end, 4) || end != len) {
-                r->error = -3; return false;
-            }
-            // deinterleave: axis-major record -> (atom, xyz) layout
-            for (int a = 0; a < A; ++a) out[a * 3 + d] = axis[a];
         }
     }
     r->next_frame += n;

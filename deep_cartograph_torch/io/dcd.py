@@ -2,7 +2,9 @@
 
 The header, the slice reader and the writer are numpy; the chunk reader
 `iter_dcd_chunks_prefetch` decodes on a native background thread
-(`io/csrc/dcdloader.cpp`, compiled by g++ at first use). The format is
+(`io/csrc/dcdloader.cpp`, compiled by g++ at first use; the JAX
+package's reader, but taking up to 1 MiB of whole frames per fread where
+that one takes one record). The format is
 Fortran record-delimited: every record is framed by int32 byte counts.
 
 Layout:

@@ -12,8 +12,9 @@ halve (float32 to int16).
   * `upload_coords`: quantize, copy, dequantize; or a plain float32 copy.
 
 `Featurizer.featurize_trajectory(upload="int16")` (geom/engine.py) sends
-every chunk this way. `resolve_upload_mode` reads DC_TPU_UPLOAD, the
-setting the JAX package reads too, so one variable drives both.
+every chunk this way; its default is float32. `resolve_upload_mode("auto")`
+reads DC_TPU_UPLOAD, the setting the JAX package reads too, so a caller
+that passes "auto" follows the same variable as the JAX package.
 """
 
 from __future__ import annotations

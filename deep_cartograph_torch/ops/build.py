@@ -50,6 +50,15 @@ class KernelStats:
     launches: int = 0
     plain_calls: int = 0
 
+    def count_launch(self) -> None:
+        """Count one launch. A call recorded into a CUDA graph under capture
+        launches nothing and is not counted; the graph's replays launch the
+        kernel without passing through its wrapper, so no counter sees them."""
+        import torch
+
+        if not torch.cuda.is_current_stream_capturing():
+            self.launches += 1
+
 
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")

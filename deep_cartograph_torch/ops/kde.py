@@ -80,7 +80,7 @@ def kde_logsumexp(
         raise ValueError(f"Unsupported device: {device}")
     out = torch.empty((G,), dtype=torch.float32, device=device)
     launch(grid_s, samples_s, out)
-    STATS.launches += 1
+    STATS.count_launch()
     return out
 
 

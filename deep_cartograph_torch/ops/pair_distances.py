@@ -77,7 +77,7 @@ def pair_distances(points: torch.Tensor, pairs: torch.Tensor) -> torch.Tensor:
         (points.shape[0], pairs.shape[0]), dtype=torch.float32, device=points.device
     )
     launch(points, pairs, out)
-    STATS.launches += 1
+    STATS.count_launch()
     return out
 
 

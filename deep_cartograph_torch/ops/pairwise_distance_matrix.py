@@ -63,7 +63,7 @@ def pairwise_distance_matrix(coords: torch.Tensor) -> torch.Tensor:
     F, A, _ = coords.shape
     out = torch.empty((F, A, A), dtype=torch.float32, device=coords.device)
     launch(coords, out)
-    STATS.launches += 1
+    STATS.count_launch()
     return out
 
 

@@ -598,6 +598,30 @@ def test_fit_chunked_graph_matches_eager(cuda, k):
         np.testing.assert_allclose(_align_signs(x @ est.weights, want), want, atol=1e-5)
 
 
+def test_graph_replays_launch_k1_that_no_wrapper_counts(cuda):
+    """K1 inside fit_chunked's block_fn: its wrapper counts the eager calls
+    of each pass (the shift, the warm-up block, the tail check) and not the
+    capture; torch.profiler's trace shows those and every replayed block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deep_cartograph_torch.cv.htica_stream import StreamingHTICA
+
+    rng = np.random.default_rng(5)
+    points = torch.tensor(rng.normal(30, 10, (1200, 8, 3)).astype(np.float32), device=cuda)
+    pairs = torch.tensor([(i, j) for i in range(8) for j in range(i + 1, 8)],
+                         dtype=torch.int32, device=cuda)
+    est = StreamingHTICA(28, 4, 3, 2, lag_time=5)
+    before = torch_pd.STATS.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        est.fit_chunked(lambda start: torch_pd.pair_distances(
+            _device_rows(points, start, 100), pairs), 1200, 100, blocks_per_dispatch=3)
+        torch.cuda.synchronize()
+    traced = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                 and "pair_distances_kernel" in e.name for e in prof.events())
+    assert torch_pd.STATS.launches - before == 2 * 3
+    assert traced == 2 * 3 + 2 * 12
+
+
 def test_fit_chunked_refuses_a_block_fn_it_cannot_capture(cuda):
     """A block_fn that waits for the card cannot be captured; one whose
     blocks come from Python state replays stale blocks. Both raise."""

@@ -337,10 +337,10 @@ def test_sensitivity_structure_matches_jax(trained, cv):
 def test_a_collected_calculator_leaves_the_next_load_alone(trained, tmp_path,
                                                            monkeypatch):
     """A calculator loaded into a folder and then dropped inside a reference
-    cycle is removed by the garbage collector, whose finalizer deletes the
-    shared unzip folder. The collector may run at any allocation, here while
-    the next load copies that folder; the next load must still get all of
-    its model's files."""
+    cycle is removed by the garbage collector, whose finalizer deletes its
+    unzip folder. The collector may run at any allocation, here while the
+    next load into the same folder copies its own unzipped files; the next
+    load must still get all of its model's files."""
     import gc
     import shutil
 

@@ -258,6 +258,25 @@ def test_dcd_prefetch_equals_jax_and_read_dcd(tmp_path, cell, chunk):
 
 
 @pytest.mark.parametrize("cell", [False, True])
+def test_dcd_prefetch_reads_frames_across_slabs(tmp_path, cell):
+    """Frames of 30,000 atoms (360 kB) make a chunk of 5 span several of the
+    native reader's 1 MiB slabs; a cut in the last frame raises at its chunk."""
+    coords = _coords(11, n_frames=7, n_atoms=30_000)
+    path = str(tmp_path / "wide.dcd")
+    (_write_dcd_with_cell if cell else tdcd.write_dcd)(path, coords)
+    got, err = _chunks(tdcd, path, 5)
+    want, jerr = _chunks(jdcd, path, 5)
+    assert err is None and jerr is None
+    _same_chunks(got, want)
+    np.testing.assert_array_equal(np.concatenate(got), coords)
+    cut = str(tmp_path / "wide_cut.dcd")
+    open(cut, "wb").write(open(path, "rb").read()[:-1000])
+    got, err = _chunks(tdcd, cut, 5)
+    assert err == "DCDError" and len(got) == 1
+    np.testing.assert_array_equal(got[0], coords[:5])
+
+
+@pytest.mark.parametrize("cell", [False, True])
 def test_dcd_header_count_zero(tmp_path, cell):
     """A header frame count of 0: both readers count the body's frames."""
     coords = _coords(5, n_frames=20)

@@ -128,6 +128,16 @@ def test_upload_auto_reads_the_setting(system, monkeypatch):
         _port_features(system, "int8")
 
 
+def test_upload_default_ignores_the_setting(system, monkeypatch):
+    """The Featurizer's default is the exact float32 copy: DC_TPU_UPLOAD
+    (set for a JAX run, say) reaches the port only through upload="auto"."""
+    monkeypatch.setenv("DC_TPU_UPLOAD", "int16")
+    top = Topology.from_pdb(system["pdb"])
+    default = Featurizer(top, system["labels"], device="cpu").featurize_trajectory(
+        system["dcd"], frame_chunk=CHUNK)
+    np.testing.assert_array_equal(default, _port_features(system, "float32"))
+
+
 def _dihedral_error_bound(coords, quads, delta):
     """(frames, quads): how far the sine or cosine of a dihedral can move
     when each coordinate moves by at most delta (per frame, per axis), plus
