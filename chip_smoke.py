@@ -5,6 +5,10 @@ Run from the repository root, with one card visible:
 
     python3 chip_smoke.py
 
+With several cards, `python3 chip_smoke.py --multi-gpu` runs phases 1 and
+3 (on the first card alone) and phase 11 over every card, and prints no
+kernels line.
+
 Phases, each failing the run (non-zero exit) if it fails:
 
 1. Device and build: requires CUDA, prints the card's name and power limit
@@ -128,11 +132,24 @@ Phases, each failing the run (non-zero exit) if it fails:
    chunked passes replay CUDA graphs), held to each other within 1e-5; the
    calpha_transitions demo dataset materialized and one system featurized;
    the PLUMED driver on an exported input where a plumed binary exists.
+11. Multi-GPU (`multi_gpu`, the kernels' counts zeroed before and read
+   after), on the mesh of every visible card, or of the one card listed
+   four times (five, or the most cards that divide 10, for the 10 HTICA
+   subspaces and deep-TICA tries): the Featurizer's auto-shard on the DCD
+   with float32 and int16 uploads (K1 on each shard of each chunk), held
+   to the one-device features and phase 3's (bit-equal expected) and to
+   phase 10's int16 bound; FramesToCV over the 100,000 frames; entropy and
+   std of the host feature matrix, feature-sharded; TICA at 100,000 x 586
+   through tica_sharded; the streaming HTICA at phase 4's shape with its
+   subspaces over the mesh; deep-TICA with its tries over the mesh (2
+   epochs); the 2-D FES through _kde_fes_sharded (K2 on each shard); one
+   data-parallel step over an NCCL group of one process. Each step runs
+   once on a mesh of the first card alone and twice on the mesh, timed.
 
 Prints the nvidia-smi line, the [smoke] lines (times beside the card's name
 and power limit), then one JSON line {"kernels": [...]} (each kernel's
 launches as its wrapper counts them, summed over the main path and phases 4,
-6, 7, 8, 9 and 10, and by path; and, apart, the launches of the CUDA graphs'
+6, 7, 8, 9, 10 and 11, and by path; and, apart, the launches of the CUDA graphs'
 replays in phase 10, which no wrapper sees, read from a torch.profiler trace), then,
 as the last line, {"ok": true, "device": {...}}. The total time is the last
 [smoke] line. The phases run one after another in this process.
@@ -856,7 +873,7 @@ def main_path(coords: np.ndarray, tmp: str, stats) -> dict:
         else:
             check(s.launches > 0, f"{s.name} was launched on the main path")
     context = {"features": features, "kept_features": kept_features, "kept": kept,
-               "cv": cv,
+               "cv": cv, "entropy": entropy, "std": std, "fes_2d": fes_2d,
                "pdb_path": pdb_path, "dcd_path": dcd_path, "frames": frames}
     return result, calc, context
 
@@ -2894,10 +2911,323 @@ def native_io(ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
     return out
 
 
+def smoke_mesh(divides: int = 0, device="cuda"):
+    """Phase 11's mesh: every visible card, else cuda:0 listed four times.
+    With `divides`, a mesh whose size divides it: the most cards that do,
+    else cuda:0 listed 5 times (the 10 subspaces and 10 tries)."""
+    import torch
+
+    from deep_cartograph_torch.parallel.mesh import Mesh
+
+    n = torch.cuda.device_count() if device == "cuda" else 1
+    if n > 1:
+        k = max(k for k in range(1, n + 1) if not divides or divides % k == 0)
+        return Mesh([f"cuda:{i}" for i in range(k)])
+    first = "cuda:0" if device == "cuda" else "cpu"
+    return Mesh([first] * (5 if divides else 4))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def align_columns(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a's columns flipped to correlate positively with b's."""
+    return a * np.sign(np.sum(a * b, axis=0))
+
+
+def multi_gpu(calc, ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
+              device="cuda") -> dict:
+    """Phase 11: every sharded path at the main path's width, on the mesh of
+    every visible card (else cuda:0 listed four times), each step timed
+    beside its one-device counterpart (a mesh of cuda:0 alone) and held to
+    it and to phase 3 (the kernels' counts zeroed before and read after):
+    the Featurizer's auto-shard on the DCD and its int16 upload (K1 a
+    shard), FramesToCV, entropy and std, TICA, the streaming HTICA, the
+    try-sharded deep-TICA, the 2-D FES (K2 a shard), and one data-parallel
+    step over an NCCL group of one process (gloo for a rehearsal on the
+    CPU, `device="cpu"`)."""
+    import torch
+    import torch.distributed as dist
+
+    from deep_cartograph_torch.cv.htica_stream import StreamingHTICA
+    from deep_cartograph_torch.cv.tica_math import tica_sharded
+    from deep_cartograph_torch.deploy import FramesToCV
+    from deep_cartograph_torch.features.grammar import compile_plan
+    from deep_cartograph_torch.fes.kde import compute_fes
+    from deep_cartograph_torch.geom.engine import (
+        Featurizer,
+        ShardedChunkEvaluator,
+        auto_chunk_size,
+    )
+    from deep_cartograph_torch.geom.kernels import PlanEvaluator
+    from deep_cartograph_torch.io.topology import Topology
+    from deep_cartograph_torch.models.training import Optimizer
+    from deep_cartograph_torch.parallel import Mesh, init_distributed, use_mesh
+    from deep_cartograph_torch.parallel.training import make_dp_train_step
+    from deep_cartograph_torch.stats.descriptors import shannon_entropy, standard_deviation
+
+    t_phase = time.perf_counter()
+    one = Mesh(["cuda:0" if device == "cuda" else "cpu"])
+    mesh, mesh10 = smoke_mesh(device=device), smoke_mesh(10, device)
+    k1, k2 = stats[0], stats[1]
+    labels = make_labels(N_ATOMS)
+    top = Topology.from_pdb(ctx["pdb_path"])
+    out: dict = {"mesh": [str(d) for d in mesh], "mesh_of_10": [str(d) for d in mesh10],
+                 "cards": torch.cuda.device_count()}
+    for st in stats:
+        st.launches = st.plain_calls = 0
+
+    def count(st):
+        """A kernel's launches (on the CPU: calls of its plain version)."""
+        return st.launches if device == "cuda" else st.plain_calls
+
+    def both(name, fn, on=None):
+        """fn() on one device, then twice on the mesh (the first sharded
+        call of a step may pay the first use of another card): (one-device,
+        sharded) results."""
+        with use_mesh(one):
+            first, out[f"{name}_one_s"] = synced(fn, device)
+        with use_mesh(on or mesh):
+            _, out[f"{name}_sharded_first_s"] = synced(fn, device)
+            second, out[f"{name}_sharded_s"] = synced(fn, device)
+        return first, second
+
+    # 1. The Featurizer's auto-shard on the DCD, float32 and int16 uploads.
+    featurizer = Featurizer(top, labels, device=device)
+    chunks = -(-N_FRAMES // auto_chunk_size(CHUNK, N_ATOMS, len(labels)))
+    with use_mesh(mesh):
+        check(isinstance(featurizer.evaluator, ShardedChunkEvaluator),
+              "the Featurizer shards over the mesh")
+    for upload in ("float32", "int16"):
+        before = count(k1)
+        single, sharded = both(f"featurize_{upload}", lambda: featurizer.featurize_trajectory(
+            ctx["dcd_path"], frame_chunk=CHUNK, upload=upload))
+        out[f"featurize_{upload}_k1_launches"] = count(k1) - before
+        check(out[f"featurize_{upload}_k1_launches"] == chunks * (1 + 2 * len(mesh)),
+              f"K1 once a chunk on one device and once a shard of each chunk, twice ({upload})")
+        out[f"featurize_{upload}_err_vs_one"] = float(np.abs(sharded - single).max())
+        out[f"featurize_{upload}_bit_equal"] = bool(np.array_equal(sharded, single))
+        check(out[f"featurize_{upload}_err_vs_one"] <= 1e-6,
+              f"sharded {upload} features equal the one-device ones "
+              f"({out[f'featurize_{upload}_err_vs_one']})")
+        if upload == "float32":
+            out["featurize_err_vs_phase3"] = float(np.abs(sharded - ctx["features"]).max())
+            check(out["featurize_err_vs_phase3"] <= 1e-6,
+                  f"sharded features equal phase 3's ({out['featurize_err_vs_phase3']})")
+        else:
+            excess = int16_excess(sharded, ctx["features"], coords, labels,
+                                  auto_chunk_size(CHUNK, N_ATOMS, len(labels)))
+            out.update({f"int16_{k}": v for k, v in excess.items()})
+            check(all(excess[f"{k}_excess"] <= 0 for k in ("dist", "sin", "cos")),
+                  "sharded int16 features within phase 10's bound")
+        del single, sharded
+
+    # 2. Serving: FramesToCV over the 100,000 frames.
+    before = count(k1)
+    single, sharded = both("frames_to_cv", lambda: FramesToCV(
+        calc.projection(), top, ctx["kept"], device=device)(ctx["frames"]))
+    out["frames_to_cv_k1_launches"] = count(k1) - before
+    out["frames_to_cv_err_vs_phase3"] = float(np.abs(sharded - ctx["cv"]).max())
+    out["frames_to_cv_err_vs_one"] = float(np.abs(sharded - single).max())
+    check(out["frames_to_cv_k1_launches"] == 1 + 2 * len(mesh)
+          and max(out["frames_to_cv_err_vs_phase3"], out["frames_to_cv_err_vs_one"]) <= 1e-5,
+          f"sharded FramesToCV within 1e-5 of phase 3 and one device "
+          f"({out['frames_to_cv_err_vs_phase3']}, {out['frames_to_cv_err_vs_one']})")
+
+    # 3. Entropy and std, feature-sharded, of the host feature matrix.
+    (ent1, std1), (ent, std) = both("entropy_std", lambda: (
+        shannon_entropy(ctx["features"], device=device),
+        standard_deviation(ctx["features"], device=device)))
+    out["entropy_std_equal"] = bool(np.array_equal(ent, ent1) and np.array_equal(std, std1)
+                                    and np.array_equal(ent, ctx["entropy"])
+                                    and np.array_equal(std, ctx["std"]))
+    check(out["entropy_std_equal"], "feature-sharded entropy and std equal phase 3's")
+
+    # 4. TICA through the calculator: tica_sharded at 100,000 x 586.
+    def tica_calc():
+        t = linear_calculator("tica", os.path.join(tmp, "multi_gpu_tica"), device)
+        t._set_training_data(ctx["kept_features"], np.zeros(N_FRAMES, np.int64), ctx["kept"])
+        t.compute_cv()
+        return t
+
+    tica_one, tica_mesh = both("tica", tica_calc)
+    out["tica_eigenvalue_err"] = float(np.abs(np.asarray(tica_mesh.eigenvalues_)
+                                              - tica_one.eigenvalues_).max())
+    out["tica_weights_err"] = float(np.abs(align_columns(tica_mesh.cv, tica_one.cv)
+                                           - tica_one.cv).max() / np.abs(tica_one.cv).max())
+    x = ctx["kept_features"]
+    _, out["tica_sharded_fn_s"] = synced(lambda: tica_sharded(x[:-10], x[10:], 2, mesh),
+                                            device)
+    check(out["tica_eigenvalue_err"] <= EIGVAL_TOL,
+          f"sharded TICA eigenvalues within {EIGVAL_TOL} ({out['tica_eigenvalue_err']})")
+    del tica_one, tica_mesh
+
+    # 5. The streaming HTICA at phase 4's shape, the subspaces over the mesh.
+    names = ctx["kept"][:HTICA_STREAM_FEATURES]
+    index = {lab: i for i, lab in enumerate(labels)}
+    evaluator = PlanEvaluator(compile_plan(labels, top), device=device)
+    frames = torch.as_tensor(coords[:COLVARS_FRAMES], device=device)
+    cols = torch.as_tensor([index[n] for n in names], device=device)
+    whole = evaluator.eval_raw(frames).index_select(1, cols)
+    normalized = (whole - whole.mean(0)) / whole.std(0)
+    del whole, frames
+
+    def htica(est_mesh):
+        est = StreamingHTICA(len(names), LINEAR_CONFIG["num_subspaces"],
+                             LINEAR_CONFIG["subspaces_dimension"], 2,
+                             LINEAR_CONFIG["lag_time"], device=device, mesh=est_mesh)
+        est.fit(lambda: (normalized[s:s + HTICA_BLOCK]
+                         for s in range(0, COLVARS_FRAMES, HTICA_BLOCK)))
+        return est
+
+    est_one, out["htica_one_s"] = synced(lambda: htica(None), device)
+    est_mesh, out["htica_sharded_s"] = synced(lambda: htica(mesh10), device)
+    host = normalized.double().cpu().numpy()
+    ref, got = host @ est_one.weights, host @ est_mesh.weights
+    out["htica_eigenvalue_err"] = float(np.abs(est_mesh.eigenvalues_ - est_one.eigenvalues_).max())
+    out["htica_projection_err"] = float(np.abs(align_columns(got, ref) - ref).max())
+    check(max(out["htica_eigenvalue_err"], out["htica_projection_err"]) <= FUSED_TOL,
+          f"streaming HTICA over the mesh within {FUSED_TOL} of one device "
+          f"({out['htica_eigenvalue_err']}, {out['htica_projection_err']})")
+    del normalized, host
+
+    # 6. Deep-TICA with the 10 tries over the mesh, 2 epochs.
+    def train():
+        c = calculator("deep_tica", TRAIN_CONFIG, calc.training_data,
+                       calc.features_ref_labels, device, max_epochs=BREAKDOWN_EPOCHS)
+        c.train()
+        return c
+
+    train_one, train_mesh = both("train", train, mesh10)
+    out["train_loss_max_rel_diff"] = max(
+        float(np.max(np.abs(np.asarray(a.metrics[k]) - b.metrics[k])
+                     / np.maximum(np.abs(b.metrics[k]), 1e-12)))
+        for (_, a), (_, b) in zip(train_mesh.try_results, train_one.try_results)
+        for k in ("train_loss", "valid_loss"))
+    out["train_epoch_seconds_one"] = train_one.epoch_seconds
+    out["train_epoch_seconds_sharded"] = train_mesh.epoch_seconds
+    check(out["train_loss_max_rel_diff"] <= CARD_CPU_LOSS_RTOL,
+          f"try-sharded per-epoch losses within rel {CARD_CPU_LOSS_RTOL} of one device "
+          f"({out['train_loss_max_rel_diff']})")
+    del train_one, train_mesh
+
+    # 7. The 2-D FES with each block's samples over the mesh (K2 a shard).
+    before = count(k2)
+    (_, fes1, _), (_, fes, _) = both("fes_2d", lambda: compute_fes(
+        ctx["cv"], bandwidth=BANDWIDTH, num_bins=NUM_BINS, num_blocks=1, device=device))
+    out["fes_2d_k2_launches"] = count(k2) - before
+    out["fes_2d_err_vs_phase3"] = float(np.abs(fes - ctx["fes_2d"]).max())
+    out["fes_2d_err_vs_one"] = float(np.abs(fes - fes1).max())
+    check(out["fes_2d_k2_launches"] == 1 + 2 * len(mesh)
+          and max(out["fes_2d_err_vs_phase3"], out["fes_2d_err_vs_one"]) <= FES_TOL,
+          f"sharded 2-D FES within {FES_TOL} kJ/mol of phase 3 ({out['fes_2d_err_vs_phase3']})")
+
+    # 8. One data-parallel step over an NCCL group (one process) on the mesh.
+    port = free_port()
+    init_distributed(f"localhost:{port}", 1, 0, device=device)
+    check(not dist.is_initialized(), "init_distributed does nothing for one process")
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    out["nccl_init_s"] = time.perf_counter() - t0
+    try:
+        rows = min(8192, len(ctx["kept_features"]))
+        batch = {"data": ctx["kept_features"][:rows],
+                 "target": torch.as_tensor(ctx["cv"][:rows], device=device),
+                 "weight": torch.ones(rows, device=device)}
+        w0 = torch.as_tensor(np.random.default_rng(SEED).normal(
+            0, 0.05, (len(ctx["kept"]), 2)).astype(np.float32), device=device)
+
+        def loss(params, b):
+            err = ((b["data"] @ params["w"] - b["target"]) ** 2).mean(1)
+            return (err * b["weight"]).sum() / b["weight"].sum().clamp_min(1e-9)
+
+        optimizer = Optimizer("Adam", {"lr": 1e-3})
+        params = {"w": w0.clone()}
+        state = optimizer.init(params)
+        step = make_dp_train_step(loss, optimizer, Mesh(mesh.devices, group=dist.group.WORLD),
+                                  1e-3)
+        (_, _, dp_loss), out["dp_step_s"] = synced(lambda: step(params, state, batch),
+                                                   device)
+        w1 = params["w"].clone()
+        # a second step on a copy, timed once the communicator exists
+        _, out["dp_step_again_s"] = synced(
+            lambda: step({"w": w1.clone()}, optimizer.init(params), batch), device)
+        plain = {"w": w0.clone().requires_grad_(True)}
+        plain_loss = loss(plain, batch)
+        (grad,) = torch.autograd.grad(plain_loss, [plain["w"]])
+        plain_state = optimizer.init(plain)
+        optimizer.step(plain, {"w": grad}, plain_state,
+                       torch.tensor([1e-3], device=device))
+        out["dp_step_err"] = float((params["w"] - plain["w"].detach()).abs().max())
+        out["dp_loss_rel_err"] = abs(float(dp_loss) / float(plain_loss) - 1)
+    finally:
+        dist.destroy_process_group()
+    check(out["dp_step_err"] <= 1e-5 and out["dp_loss_rel_err"] <= 1e-5,
+          f"the data-parallel step equals a plain step ({out['dp_step_err']}, "
+          f"{out['dp_loss_rel_err']})")
+
+    out["launches"] = {st.name: count(st) for st in stats}
+    out["phase11_s"] = time.perf_counter() - t_phase
+    check(out["launches"]["pair_distances_kernel"] > 0
+          and out["launches"]["kde_logsumexp_kernel"] > 0, "K1 and K2 ran in phase 11")
+    steps = [k[:-len("_sharded_s")] for k in out if k.endswith("_sharded_s")]
+    log(f"[{card}] multi_gpu on {out['mesh']} ({out['cards']} card(s); 10 subspaces and "
+        f"tries on {len(mesh10)}): " + "; ".join(
+            f"{k} {out[k + '_sharded_s']:.3f} s (one device {out[k + '_one_s']:.3f} s)"
+            for k in steps)
+        + f"; NCCL init {out['nccl_init_s']:.2f} s, dp step {out['dp_step_s'] * 1e3:.1f} ms "
+        f"(again {out['dp_step_again_s'] * 1e3:.1f} ms); phase {out['phase11_s']:.1f} s")
+    log(f"[{card}] multi_gpu held: features {'bit-equal' if out['featurize_float32_bit_equal'] else out['featurize_float32_err_vs_one']}, "
+        f"int16 {out['featurize_int16_err_vs_one']:.3g}, FramesToCV "
+        f"{out['frames_to_cv_err_vs_phase3']:.3g}, TICA eigenvalues "
+        f"{out['tica_eigenvalue_err']:.3g}, HTICA {out['htica_projection_err']:.3g}, "
+        f"training rel {out['train_loss_max_rel_diff']:.3g}, FES "
+        f"{out['fes_2d_err_vs_phase3']:.3g} kJ/mol, dp step {out['dp_step_err']:.3g}; "
+        f"launches {out['launches']}")
+    log(json.dumps(out))
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def multi_gpu_only(coords: np.ndarray, card: str, start: float) -> int:
+    """`--multi-gpu`: phase 3 on cuda:0 alone (phase 11's references), then
+    phase 11 on every visible card; no kernels line."""
+    import torch
+
+    from deep_cartograph_torch.ops import kde as k2
+    from deep_cartograph_torch.ops import pair_distances as k1
+    from deep_cartograph_torch.ops import pairwise_distance_matrix as k3
+    from deep_cartograph_torch.parallel import Mesh, use_mesh
+
+    stats = [k1.STATS, k2.STATS, k3.STATS]
+    with tempfile.TemporaryDirectory() as tmp:
+        with use_mesh(Mesh(["cuda:0"])):
+            _, calc, ctx = main_path(coords, tmp, stats)
+        multi_gpu(calc, ctx, coords, tmp, stats, card)
+        del ctx
+    log(f"[{card}] total {time.perf_counter() - start:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
     start = time.perf_counter()
+    if sys.argv[1:] not in ([], ["--multi-gpu"]):
+        print("usage: chip_smoke.py [--multi-gpu]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -2931,6 +3261,8 @@ def main() -> int:
     log(f"built {len(host_sources)} host libraries in {time.perf_counter() - t0:.1f} s")
 
     coords = make_trajectory(N_FRAMES, N_ATOMS)
+    if sys.argv[1:] == ["--multi-gpu"]:
+        return multi_gpu_only(coords, card, start)
     with tempfile.TemporaryDirectory() as tmp:
         pdb_path = os.path.join(tmp, "ca.pdb")
         write_ca_pdb(pdb_path, coords[0])
@@ -2956,6 +3288,7 @@ def main() -> int:
         geometry_and_umap = phase8(ctx, tmp, stats, card)
         pipeline_run = pipeline(coords, tmp, stats, card)
         native = native_io(ctx, coords, tmp, stats, card)
+        multi = multi_gpu(calc, ctx, coords, tmp, stats, card)
         del ctx
     epochs = result["epoch_s"]
     log(f"[{card}] featurize {N_FRAMES / result['featurize_s']:.0f} frames/s "
@@ -3005,7 +3338,8 @@ def main() -> int:
                    "inputs_and_clustering": inputs_and_clustering["launches"][rec["name"]],
                    "geometry": geometry_and_umap["launches"][rec["name"]],
                    "pipeline": pipeline_run["launches"][rec["name"]],
-                   "native_io": native["launches"][rec["name"]]}
+                   "native_io": native["launches"][rec["name"]],
+                   "multi_gpu": multi["launches"][rec["name"]]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
         rec["graph_replay_launches"] = native["graph_replay_launches"][rec["name"]]

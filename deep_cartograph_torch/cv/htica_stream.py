@@ -34,21 +34,30 @@ in a 0-dim device tensor (device-resident features, or coordinates
 featurized through K1). On the card, the body of one pass (`fit_fused`) or
 of `blocks_per_dispatch` blocks (`fit_chunked`) is captured once as a CUDA
 graph and replayed with the start index rewritten in place; on the CPU the
-same body runs eagerly. Not ported here: the `mesh` argument (ROADMAP
-Queue 1 item 8).
+same body runs eagerly. Both capture on one device and take no mesh, as
+in the JAX package.
+
+`fit` with a `mesh` (`parallel.mesh.Mesh`) shards the subspace axis: each
+block's contiguous feature slice, which holds whole subspaces, goes to its
+device, and each device accumulates its own subspaces' moments and solves
+their level-1 problems with no communication. Only the level-2 projected
+blocks are gathered, on the mesh's first device.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import time
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, List, Optional
 
 import numpy as np
 import torch
 
 from deep_cartograph_torch.cv.tica_math import generalized_eigh
+from deep_cartograph_torch.parallel.mesh import Mesh
+from deep_cartograph_torch.parallel.sharding import all_gather
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -279,9 +288,12 @@ class StreamingHTICA:
         lag_time: int,
         reg: float = 1e-6,
         device: DeviceLike = None,
+        mesh: Optional[Mesh] = None,
     ):
         """`device`: None means CUDA (raises without a card); "cpu" runs on
-        the host."""
+        the host. `mesh`: shard the subspaces of `fit` over its devices
+        (the subspace count must divide over them); the results come to
+        its first device."""
         if n_features % num_subspaces != 0:
             raise ValueError(
                 f"n_features ({n_features}) must divide evenly into "
@@ -289,7 +301,13 @@ class StreamingHTICA:
             )
         if lag_time < 1:
             raise ValueError(f"lag_time must be a positive integer, got {lag_time}.")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None else mesh.devices[0]
+        self.mesh = mesh
+        if mesh is not None and num_subspaces % len(mesh):
+            raise ValueError(
+                f"num_subspaces ({num_subspaces}) must divide evenly over the "
+                f"{len(mesh)}-device mesh (contiguous feature shards must align "
+                "with subspace boundaries).")
         self.n_features = n_features
         self.n_sub = num_subspaces
         self.sub_d = n_features // num_subspaces
@@ -302,20 +320,23 @@ class StreamingHTICA:
         self.weights: Optional[np.ndarray] = None  # (F, cv_dim)
         self.eigenvalues_: Optional[np.ndarray] = None
 
-    def _stream_pairs(self, block_iter: Iterable):
+    def _stream_pairs(self, block_iter: Iterable, device=None, columns=None):
         """(x_t, x_lag) device pairs, with a lag-frame carry so that pairs
         straddling block boundaries are kept. A None item is a segment break
         (a trajectory-file boundary): the carry resets, so no pair crosses
         it. A block longer than the lag yields two pairs, the (lag, F) seam
         against the carry and the block's interior, instead of a copy of
-        carry + block; the set of pairs is the same."""
+        carry + block; the set of pairs is the same. `columns` (a slice)
+        takes only those features of each block, on `device`."""
         lag = self.lag
         carry = None
         for block in block_iter:
             if block is None:
                 carry = None
                 continue
-            block = torch.as_tensor(block).to(self.device, torch.float32)
+            if columns is not None:
+                block = block[:, columns]
+            block = torch.as_tensor(block).to(device or self.device, torch.float32)
             if block.shape[0] > lag and (carry is None or carry.shape[0] == lag):
                 if carry is not None:
                     yield carry, block[:lag]
@@ -346,8 +367,57 @@ class StreamingHTICA:
         """make_block_iter: a callable returning a fresh iterator of
         (frames, n_features) blocks, called once per pass; None items are
         segment breaks."""
+        if self.mesh is not None:
+            self._fit_sharded(make_block_iter)
+            return
         self._solve_level1(self._pass(make_block_iter, self.n_sub, self.sub_d), "")
         self._solve_level2(self._pass(make_block_iter, 1, self._z_dim, self._project))
+
+    def _sharded_pairs(self, make_block_iter) -> Iterable[List[tuple]]:
+        """Per step, the (x_t, x_lag) pairs of every device's feature slice,
+        on that device: one read of the blocks, each device's pair stream
+        advanced in lockstep (the streams pair alike)."""
+        n_dev = len(self.mesh)
+        width = self.n_features // n_dev
+        sources = itertools.tee(make_block_iter(), n_dev)
+        return zip(*[self._stream_pairs(src, dev, slice(i * width, (i + 1) * width))
+                     for i, (src, dev) in enumerate(zip(sources, self.mesh.devices))])
+
+    def _fit_sharded(self, make_block_iter) -> None:
+        """`fit` with the subspaces sharded over the mesh."""
+        devices = self.mesh.devices
+        per_dev = self.n_sub // len(devices)
+        shifts: List = [None] * len(devices)
+        states = [_zero_state(per_dev, self.sub_d, dev) for dev in devices]
+        for pairs in self._sharded_pairs(make_block_iter):
+            for i, (x_t, x_lag) in enumerate(pairs):
+                if shifts[i] is None:
+                    shifts[i] = x_t.double().mean(0)
+                _accumulate_moments(states[i], x_t, x_lag, per_dev, self.sub_d, shifts[i])
+        solved = [_run_batched_tica(*_moments_to_covs(st)[:2], self.reg, self.sub_out)
+                  for st in states]
+        evals1 = np.concatenate([w for w, _ in solved])
+        self.level1 = np.concatenate([v for _, v in solved])
+        level1_t = [torch.as_tensor(v, device=dev) for (_, v), dev in zip(solved, devices)]
+        self._level1_t = torch.as_tensor(self.level1, device=self.device)
+        logger.info("StreamingHTICA (sharded over %d devices) level 1: %d subspaces x %d "
+                    "-> %d dims (top eigenvalue %.4f)", len(devices), self.n_sub,
+                    self.sub_d, self.sub_out, float(evals1[:, 0].max()))
+
+        def project(x: torch.Tensor, level1: torch.Tensor) -> torch.Tensor:
+            xs = x.reshape(x.shape[0], per_dev, self.sub_d).transpose(0, 1)
+            return (xs @ level1).transpose(0, 1).reshape(x.shape[0], per_dev * self.sub_out)
+
+        local = self.mesh.local()
+        shift = None
+        state = _zero_state(1, self._z_dim, self.device)
+        for pairs in self._sharded_pairs(make_block_iter):
+            z_t = all_gather([project(x, w) for (x, _), w in zip(pairs, level1_t)], local, 1)
+            z_lag = all_gather([project(x, w) for (_, x), w in zip(pairs, level1_t)], local, 1)
+            if shift is None:
+                shift = z_t.double().mean(0)
+            _accumulate_moments(state, z_t, z_lag, 1, self._z_dim, shift)
+        self._solve_level2(state)
 
     @property
     def _z_dim(self) -> int:

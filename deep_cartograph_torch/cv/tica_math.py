@@ -128,6 +128,23 @@ def tica(
     return evals, evecs
 
 
+def tica_sharded(
+    x_t: Array,
+    x_lag: Array,
+    out_features: int,
+    mesh=None,
+    reg: float = 1e-6,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Frame-sharded TICA: the covariances are summed from per-device
+    partials over the mesh (`parallel.sharding.sharded_covariances`), then
+    solved on its first device as `tica` solves them."""
+    from deep_cartograph_torch.parallel.sharding import sharded_covariances
+
+    c0, ctau = sharded_covariances(x_t, x_lag, mesh)
+    w, v = generalized_eigh(ctau, c0, reg)
+    return w[:out_features].cpu().numpy(), _fix_sign(v[:, :out_features].cpu().numpy())
+
+
 def split_subspaces(n_features: int, num_subspaces: int) -> List[np.ndarray]:
     """Column index blocks of the reference HTICA's torch.split: blocks of
     n // k columns, and a smaller trailing block when k does not divide n."""

@@ -13,10 +13,17 @@ a trained calculator gives its own (`projection()`).
 `FramesToCV.from_model_zip` serves a saved model.zip of any family:
 
     pipeline = FramesToCV.from_model_zip("model.zip", "topology.pdb")
+
+With a mesh of several devices (`parallel.mesh.mesh_for`: every visible
+card, unless the caller asked for another device), every batch is sharded
+by frames: each device featurizes its slice (K1) and projects it through
+its own copy of the projection, and the CV values are gathered in frame
+order on the mesh's first device.
 """
 
 from __future__ import annotations
 
+import copy
 import tempfile
 from typing import List, Optional
 
@@ -25,9 +32,12 @@ import torch
 from torch import nn
 
 from deep_cartograph_torch.features.grammar import compile_plan
+from deep_cartograph_torch.geom.engine import ShardedChunkEvaluator
 from deep_cartograph_torch.geom.kernels import PlanEvaluator
 from deep_cartograph_torch.io.topology import Topology
 from deep_cartograph_torch.models.networks import TrainedNet
+from deep_cartograph_torch.parallel.mesh import mesh_for, shard
+from deep_cartograph_torch.parallel.sharding import all_gather
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -85,17 +95,29 @@ class FramesToCV:
         device: DeviceLike = None,
     ):
         """`device`: None means CUDA (raises without a card); "cpu" runs on
-        the host."""
+        the host. Batches shard over `mesh_for(device)` when that is a
+        mesh."""
         self.device = resolve_device(device)
         self.topology = topology
         self.plan = compile_plan(list(features_list), topology)
-        self.evaluator = PlanEvaluator(self.plan, device=self.device)
         self.projection = projection.to(self.device).eval()
+        self.mesh = mesh_for(self.device)
+        if self.mesh is None:
+            self.evaluator = PlanEvaluator(self.plan, device=self.device)
+        else:
+            self.evaluator = ShardedChunkEvaluator(self.plan, self.mesh)
+            self._projections = {self.mesh.devices[0]: self.projection}
+            for dev in self.mesh.devices:
+                if dev not in self._projections:
+                    self._projections[dev] = copy.deepcopy(projection).to(dev).eval()
 
     @torch.no_grad()
     def eval_raw(self, coords) -> torch.Tensor:
         """(C, A, 3) Angstrom frames -> (C, cv_dimension) device tensor."""
-        return self.projection(self.evaluator.eval_raw(coords))
+        if self.mesh is None:
+            return self.projection(self.evaluator.eval_raw(coords))
+        feats = self.evaluator.eval_local(shard(coords, self.mesh))
+        return all_gather([self._projections[f.device](f) for f in feats], self.mesh.local())
 
     def __call__(self, coords) -> np.ndarray:
         """(C, A, 3) Angstrom frames -> (C, cv_dimension) CV values."""

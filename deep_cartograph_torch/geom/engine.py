@@ -1,9 +1,15 @@
-"""The featurization engine: trajectory -> feature matrix, on one device.
+"""The featurization engine: trajectory -> feature matrix.
 
 The port of the JAX package's geom/engine.py: frames are decoded on the host
 in chunks, copied to the device, and every feature of every frame in the
 chunk is evaluated there (geom/kernels.py). Chunks keep their natural
 length: the kernels mask the ragged last chunk, so nothing is padded.
+
+With a mesh of several devices (`parallel.mesh.mesh_for`: every visible
+card, unless the caller asked for another device), the Featurizer shards
+the frames of every chunk over the mesh (`ShardedChunkEvaluator`): each
+device featurizes its contiguous slice of frames through K1, and the
+outputs are gathered in frame order on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -20,7 +26,13 @@ from deep_cartograph_torch.features.grammar import compile_plan
 from deep_cartograph_torch.geom.kernels import PlanEvaluator
 from deep_cartograph_torch.io.topology import Topology
 from deep_cartograph_torch.io.traj import iter_frame_chunks
-from deep_cartograph_torch.io.upload import resolve_upload_mode, upload_coords
+from deep_cartograph_torch.io.upload import (
+    resolve_upload_mode,
+    upload_coords,
+    upload_coords_sharded,
+)
+from deep_cartograph_torch.parallel.mesh import Mesh, get_mesh, mesh_for, shard
+from deep_cartograph_torch.parallel.sharding import all_gather
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -50,7 +62,9 @@ class Featurizer:
         before coordinate features (PLUMED FIT_TO_TEMPLATE equivalent).
 
         `device`: None means CUDA (raises without a card); "cpu" runs on the
-        host."""
+        host. Each call shards its frames over `mesh_for(device)` when that
+        is a mesh (the JAX package's auto-shard over a multi-device
+        backend)."""
         self.topology = topology
         self.features_list = list(features_list)
         self.plan = compile_plan(self.features_list, topology)
@@ -60,15 +74,37 @@ class Featurizer:
                 "Features contain coordinates but no fit template was provided."
             )
         self.device = resolve_device(device)
-        self.evaluator = PlanEvaluator(
-            self.plan,
-            fit_reference=ref if self.plan.needs_fit else None,
-            fit_weights=weights if self.plan.needs_fit else None,
-            device=self.device,
-        )
+        self._fit = (ref, weights) if self.plan.needs_fit else (None, None)
+        self._evaluators: dict = {}
+
+    @property
+    def evaluator(self):
+        """The evaluator of a call made now: a `ShardedChunkEvaluator` over
+        `mesh_for(self.device)` when that is a mesh, else one
+        `PlanEvaluator` on the device."""
+        return self._evaluator_for(mesh_for(self.device))
+
+    def _evaluator_for(self, mesh: Optional[Mesh]):
+        key = None if mesh is None else mesh.devices
+        if key not in self._evaluators:
+            ref, weights = self._fit
+            self._evaluators[key] = (
+                PlanEvaluator(self.plan, ref, weights, device=self.device) if mesh is None
+                else ShardedChunkEvaluator(self.plan, mesh, ref, weights))
+        return self._evaluators[key]
 
     def __call__(self, coords: np.ndarray) -> np.ndarray:
         return self.evaluator(coords)
+
+    def featurize_frames_sharded(self, coords, mesh: Optional[Mesh] = None
+                                 ) -> Tuple[List[torch.Tensor], int]:
+        """Featurize a frame batch with the frame axis sharded over `mesh`
+        (default `get_mesh()`): each device evaluates its contiguous slice
+        of frames through K1, and the outputs stay there. Returns (the
+        per-device outputs in frame order, the frame count);
+        `torch.cat` of the outputs on one device is the feature matrix."""
+        mesh = mesh or get_mesh()
+        return self._evaluator_for(mesh).eval_local(shard(coords, mesh)), len(coords)
 
     def featurize_trajectory(
         self,
@@ -92,6 +128,7 @@ class Featurizer:
         chunk = auto_chunk_size(
             frame_chunk, self.topology.n_atoms, self.plan.n_features
         )
+        evaluator = self.evaluator
         outputs: List[torch.Tensor] = []
         t0 = time.time()
         n_frames = 0
@@ -114,8 +151,9 @@ class Featurizer:
             # quantizing: that moves no axis' minimum or maximum, so the
             # unpadded chunk has the same codes.)
             if upload_mode == "int16":
-                block = upload_coords(block, "int16", self.device)
-            outputs.append(self.evaluator.eval_raw(block))
+                outputs.append(_eval_quantized(evaluator, block))
+            else:
+                outputs.append(evaluator.eval_raw(block))
         if outputs:
             result = torch.cat(outputs).cpu().numpy()
         else:
@@ -167,6 +205,7 @@ class Featurizer:
         )
         n_feat = self.plan.n_features
         pipeline_depth = 2
+        evaluator = self.evaluator
 
         buf = np.empty((chunk, self.topology.n_atoms, 3), np.float32)
         fill = 0
@@ -186,7 +225,7 @@ class Featurizer:
 
         def dispatch():
             nonlocal fill, dispatched
-            pending.append(self.evaluator.eval_raw(buf[:fill].copy()))
+            pending.append(evaluator.eval_raw(buf[:fill].copy()))
             dispatched += fill
             fill = 0
             while len(pending) > pipeline_depth:
@@ -255,6 +294,55 @@ class Featurizer:
             dt,
             offset / max(dt, 1e-9),
         )
+
+
+def _eval_quantized(evaluator, block: np.ndarray) -> torch.Tensor:
+    """Featurize a chunk through the int16 upload (io/upload.py): quantized
+    on the host as one block, then, on a mesh, its codes sliced by frames,
+    each slice copied to its device and dequantized there, K1 per slice."""
+    if isinstance(evaluator, ShardedChunkEvaluator):
+        return evaluator.eval_shards(upload_coords_sharded(block, evaluator.mesh))
+    return evaluator.eval_raw(upload_coords(block, "int16", evaluator.device))
+
+
+class ShardedChunkEvaluator:
+    """Frame-sharded adapter over `PlanEvaluator` for a mesh of several
+    devices: every chunk splits into contiguous frame slices, one per mesh
+    entry, each featurized on its device (K1); the outputs are gathered in
+    frame order on the mesh's first device. A device listed several times
+    keeps one evaluator. Exposes the PlanEvaluator call surface
+    (`__call__`, `eval_raw`)."""
+
+    def __init__(self, plan, mesh: Mesh, fit_reference: Optional[np.ndarray] = None,
+                 fit_weights: Optional[np.ndarray] = None):
+        self.plan = plan
+        self.mesh = mesh
+        self.device = mesh.devices[0]
+        by_device: dict = {}
+        for dev in mesh.devices:
+            if dev not in by_device:
+                by_device[dev] = PlanEvaluator(plan, fit_reference, fit_weights, device=dev)
+        self.evaluators = [by_device[dev] for dev in mesh.devices]
+
+    def eval_local(self, shards) -> List[torch.Tensor]:
+        """Each non-empty shard (on its device) featurized there."""
+        return [ev.eval_raw(part) for ev, part in zip(self.evaluators, shards)
+                if part.shape[0]]
+
+    def eval_shards(self, shards) -> torch.Tensor:
+        """Per-device frame shards -> the (C, F) features on the first
+        device."""
+        outs = self.eval_local(shards)
+        if not outs:
+            return torch.zeros((0, self.plan.n_features), device=self.device)
+        return all_gather(outs, self.mesh.local())
+
+    def eval_raw(self, coords_chunk) -> torch.Tensor:
+        """(C, A, 3) Angstrom frames -> (C, F) device tensor."""
+        return self.eval_shards(shard(coords_chunk, self.mesh))
+
+    def __call__(self, coords_chunk) -> np.ndarray:
+        return self.eval_raw(coords_chunk).cpu().numpy()
 
 
 def featurize_trajectory(

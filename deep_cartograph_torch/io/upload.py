@@ -10,6 +10,9 @@ halve (float32 to int16).
     the block, rounded to int16.
   * `dequantize_coords`: on the device, `q.float() * scale + offset`.
   * `upload_coords`: quantize, copy, dequantize; or a plain float32 copy.
+  * `upload_coords_sharded`: quantize the block once, then copy each
+    device's contiguous slice of frames of the codes and dequantize it
+    there (the sharded branch of the JAX package's `_eval_quantized`).
 
 `Featurizer.featurize_trajectory(upload="int16")` (geom/engine.py) sends
 every chunk this way; its default is float32. `resolve_upload_mode("auto")`
@@ -20,17 +23,19 @@ that passes "auto" follows the same variable as the JAX package.
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
+from deep_cartograph_torch.parallel.mesh import Mesh, shard
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
 __all__ = [
     "quantize_coords",
     "dequantize_coords",
     "upload_coords",
+    "upload_coords_sharded",
     "quantization_step",
     "resolve_upload_mode",
 ]
@@ -88,6 +93,22 @@ def upload_coords(block: np.ndarray, mode: str = "int16",
     q, scale, offset = quantize_coords(block)
     return dequantize_coords(torch.from_numpy(q).to(dev), torch.from_numpy(scale).to(dev),
                              torch.from_numpy(offset).to(dev))
+
+
+def upload_coords_sharded(block: np.ndarray, mesh: Mesh) -> List[torch.Tensor]:
+    """int16 upload of a coordinate block over a mesh: the block's codes
+    (one scale and offset for the whole block, so each frame has the codes
+    of an unsharded upload) sliced by frames, each slice dequantized to
+    float32 on its device. Returns the slices in mesh order."""
+    q, scale, offset = quantize_coords(block)
+    scales: dict = {}
+    out = []
+    for part in shard(q, mesh):
+        if part.device not in scales:
+            scales[part.device] = (torch.from_numpy(scale).to(part.device),
+                                   torch.from_numpy(offset).to(part.device))
+        out.append(dequantize_coords(part, *scales[part.device]))
+    return out
 
 
 def resolve_upload_mode(mode: str = "auto") -> str:

@@ -219,9 +219,10 @@ class _Stack(nn.Module):
         _optional_buffer(self, "norm_range", norm_range)
 
     def normalize_in(self, x: torch.Tensor) -> torch.Tensor:
+        # on x's device: the tries of a mesh run on several devices
         if self.norm_mean is None:
             return x
-        return (x - self.norm_mean) / self.norm_range
+        return (x - self.norm_mean.to(x.device)) / self.norm_range.to(x.device)
 
 
 class DeepTICAStack(_Stack):

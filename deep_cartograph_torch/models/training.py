@@ -13,7 +13,10 @@ tries axis T (see `models/networks.py`), the dataset is held once on the
 device and gathered per try with global row indices, and every step
 updates all tries together. Each loop turn is one epoch: its batch indices
 go up once, and its losses come back in one read of the host. `Trainer.fit`
-is the same program with T = 1.
+is the same program with T = 1. With a mesh of n devices that divides T
+(`parallel.mesh.mesh_for`), each device holds T / n of the tries, their
+optimizer state and a copy of the dataset, and runs the same step on them
+with no collective; results come back in try order.
 
 The optimizers are written out on the stacked tensors, following optax's
 formulas, because torch's differ: RMSprop's epsilon sits inside the square
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from deep_cartograph_torch.parallel.mesh import mesh_for
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -311,6 +315,23 @@ def _to_device(values, device: torch.device) -> torch.Tensor:
 
 LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
+
+@dataclass
+class _Lane:
+    """The tries that train on one device, and their state there."""
+
+    device: torch.device
+    tries: slice
+    data: Dict[str, torch.Tensor] = field(default_factory=dict)
+    valid_batch: Dict[str, torch.Tensor] = field(default_factory=dict)
+    params: Params = field(default_factory=dict)
+    opt_state: Dict = field(default_factory=dict)
+    gens: List[torch.Generator] = field(default_factory=list)
+    gb: Optional[torch.Tensor] = None
+    wb: Optional[torch.Tensor] = None
+    lrs: Optional[torch.Tensor] = None
+    loss_sum: Optional[torch.Tensor] = None
+
 # The name of each training step's span in a torch.profiler trace.
 STEP_SPAN = "trainer.step"
 
@@ -413,30 +434,39 @@ class Trainer:
         apply to the validation gather only when it reads full_data.
         """
         cfg = self.config
-        dev = self.device
         T, n_train = train_idx.shape
         n_valid = valid_idx.shape[1]
         steps = int(np.ceil(n_train / cfg.batch_size))
         off = dict(index_offsets or {})
         voff = off if valid_data is None else {}
-
-        data = {k: _to_device(v, dev) for k, v in full_data.items()}
-        vdata = (data if valid_data is None
-                 else {k: _to_device(v, dev) for k, v in valid_data.items()})
-        vidx = torch.as_tensor(np.asarray(valid_idx, np.int64), device=dev)
-        valid_batch = {k: v[vidx + voff.get(k, 0)] for k, v in vdata.items()}
-        valid_batch["weight"] = torch.ones((T, n_valid), device=dev)
         train_idx = np.asarray(train_idx, np.int64)
+        lanes = self._lanes(T)
 
-        params = {k: v.detach().to(dev, torch.float32).clone().requires_grad_(True)
-                  for k, v in params_stack.items()}
+        # The dataset once per device; each lane holds its tries' validation
+        # rows, parameters, optimizer state and generators.
+        placed: Dict[torch.device, tuple] = {}
+        for lane in lanes:
+            if lane.device not in placed:
+                data = {k: _to_device(v, lane.device) for k, v in full_data.items()}
+                vdata = (data if valid_data is None else
+                         {k: _to_device(v, lane.device) for k, v in valid_data.items()})
+                placed[lane.device] = (data, vdata)
+            lane.data, vdata = placed[lane.device]
+            vidx = torch.as_tensor(np.asarray(valid_idx, np.int64)[lane.tries],
+                                   device=lane.device)
+            lane.valid_batch = {k: v[vidx + voff.get(k, 0)] for k, v in vdata.items()}
+            lane.valid_batch["weight"] = torch.ones(vidx.shape, device=lane.device)
+            lane.params = {k: v[lane.tries].detach().to(lane.device, torch.float32)
+                           .clone().requires_grad_(True) for k, v in params_stack.items()}
+            lane.gens = [torch.Generator(device=lane.device).manual_seed(int(s))
+                         for s in list(seeds)[lane.tries]]
         optimizer = Optimizer(cfg.optimizer_name, cfg.optimizer_kwargs)
-        opt_state = optimizer.init(params)
+        for lane in lanes:
+            lane.opt_state = optimizer.init(lane.params)
         base_lr = cfg.optimizer_kwargs.get("lr", 1e-3)
         schedule = self._one_cycle(steps)
         plateaus = self._plateaus(T)
         np_rngs = [np.random.default_rng(s) for s in seeds]
-        gens = [torch.Generator(device=dev).manual_seed(int(s)) for s in seeds]
 
         metrics: List[Dict[str, List]] = [
             {"epoch": [], "train_loss": [], "valid_loss": [], "lr": []}
@@ -447,7 +477,13 @@ class Trainer:
                 m["beta"] = []
 
         def snapshot():
-            return {k: v.detach().clone() for k, v in params.items()}
+            return [{k: v.detach().clone() for k, v in lane.params.items()} for lane in lanes]
+
+        def select(mask, new, old):
+            return [_select(mask[lane.tries], n, o) for lane, n, o in zip(lanes, new, old)]
+
+        def current():
+            return [lane.params for lane in lanes]
 
         best_score = np.full(T, np.inf)
         es_best = np.full(T, np.inf)
@@ -479,7 +515,6 @@ class Trainer:
                 cfg.max_epochs,
             )
         lr_tries = np.full(T, base_lr, np.float32)
-        leaves = list(params.values())
         self.epoch_seconds = []
 
         for epoch in range(cfg.max_epochs):
@@ -502,35 +537,39 @@ class Trainer:
                 )[:, None].repeat(T, 1)
             else:
                 lrs = lr_tries[None].repeat(steps, 0)
-            gb_d = torch.as_tensor(gb, device=dev)
-            wb_d = torch.as_tensor(wb, device=dev)
-            lrs_d = torch.as_tensor(lrs, device=dev)
+            for lane in lanes:
+                lane.gb = torch.as_tensor(gb[lane.tries], device=lane.device)
+                lane.wb = torch.as_tensor(wb[lane.tries], device=lane.device)
+                lane.lrs = torch.as_tensor(lrs[:, lane.tries], device=lane.device)
+                lane.loss_sum = torch.zeros(lane.gb.shape[0], device=lane.device)
 
-            loss_sum = torch.zeros(T, device=dev)
             for s in range(steps):
                 # a span for torch.profiler; a no-op when none is recording
                 with record_function(STEP_SPAN):
-                    idx = gb_d[:, s]
-                    batch = {k: v[idx + off.get(k, 0)] for k, v in data.items()}
-                    batch["weight"] = wb_d[:, s]
-                    loss, _ = self.loss_fn(params, batch, gens, beta, True)
-                    grads = torch.autograd.grad(loss.sum(), leaves)
-                    optimizer.step(params, dict(zip(params, grads)), opt_state,
-                                   lrs_d[s])
-                    loss_sum += loss.detach()
-            train_loss = loss_sum / steps
+                    for lane in lanes:
+                        idx = lane.gb[:, s]
+                        batch = {k: v[idx + off.get(k, 0)] for k, v in lane.data.items()}
+                        batch["weight"] = lane.wb[:, s]
+                        loss, _ = self.loss_fn(lane.params, batch, lane.gens, beta, True)
+                        grads = torch.autograd.grad(loss.sum(), list(lane.params.values()))
+                        optimizer.step(lane.params, dict(zip(lane.params, grads)),
+                                       lane.opt_state, lane.lrs[s])
+                        lane.loss_sum += loss.detach()
 
             if (epoch + 1) % check_every != 0:
                 self.epoch_seconds.append(time.perf_counter() - t_epoch)
                 continue
-            with torch.no_grad():
-                valid_loss, valid_aux = self.loss_fn(
-                    params, valid_batch, gens, beta, False
-                )
-            aux_keys = list(valid_aux)
-            host = torch.stack(
-                [train_loss, valid_loss] + [valid_aux[k] for k in aux_keys]
-            ).cpu().numpy().astype(np.float64)
+            parts = []
+            for lane in lanes:
+                with torch.no_grad():
+                    valid_loss, valid_aux = self.loss_fn(
+                        lane.params, lane.valid_batch, lane.gens, beta, False
+                    )
+                aux_keys = list(valid_aux)
+                parts.append(torch.stack(
+                    [lane.loss_sum / steps, valid_loss] + [valid_aux[k] for k in aux_keys]
+                ).cpu().numpy().astype(np.float64))
+            host = np.concatenate(parts, axis=1)
             self.epoch_seconds.append(time.perf_counter() - t_epoch)
             tl_host, vl_host = host[0], host[1]
             if schedule is not None:
@@ -563,13 +602,13 @@ class Trainer:
             if save_eligible:
                 cap = active & (vl_host < best_score)
                 if cap.any():
-                    best_params = _select(cap, params, best_params)
+                    best_params = select(cap, current(), best_params)
                     best_score = np.where(cap, vl_host, best_score)
                     best_epoch = np.where(cap, epoch, best_epoch)
                 if cfg.post_annealing_checkpoint and epoch >= anneal_end:
                     pcap = active & (vl_host < post_best_score)
                     if pcap.any():
-                        post_best_params = _select(pcap, params, post_best_params)
+                        post_best_params = select(pcap, current(), post_best_params)
                         post_best_score = np.where(pcap, vl_host, post_best_score)
                         post_best_epoch = np.where(pcap, epoch, post_best_epoch)
                         post_has_best |= pcap
@@ -585,17 +624,23 @@ class Trainer:
             newly_stopped = ~stopped & (bad_checks >= cfg.early_stop_patience)
             if newly_stopped.any():
                 # Freeze each stopping try's "last" params at ITS stop epoch.
-                last_params = _select(newly_stopped, params, last_params)
+                last_params = select(newly_stopped, current(), last_params)
                 last_epoch = np.where(newly_stopped, epoch, last_epoch)
                 stopped |= newly_stopped
 
         if (~stopped).any():
-            last_params = _select(~stopped, params, last_params)
+            last_params = select(~stopped, current(), last_params)
 
+        # Results in try order, gathered from the lanes to the trainer's
+        # device.
+        where = [(li, j) for li, lane in enumerate(lanes)
+                 for j in range(lane.tries.stop - lane.tries.start)]
         results: List[TrainResult] = []
         for t in range(T):
-            def take(tree):
-                return {k: v[t].clone() for k, v in tree.items()}
+            li, j = where[t]
+
+            def take(trees):
+                return {k: v[j].to(self.device, copy=True) for k, v in trees[li].items()}
 
             if cfg.post_annealing_checkpoint and post_has_best[t]:
                 results.append(TrainResult(
@@ -613,3 +658,15 @@ class Trainer:
                     int(last_epoch[t]), "last",
                 ))
         return results
+
+    def _lanes(self, T: int) -> List["_Lane"]:
+        """The devices the T tries train on: with a mesh that divides T
+        (`parallel.mesh.mesh_for`), T / n contiguous tries on each of its n
+        devices, with no collective; else all on the trainer's device."""
+        mesh = mesh_for(self.device)
+        if mesh is None or T % len(mesh):
+            return [_Lane(self.device, slice(0, T))]
+        logger.info("Sharding %d training tries over %d devices.", T, len(mesh))
+        per = T // len(mesh)
+        return [_Lane(dev, slice(i * per, (i + 1) * per))
+                for i, dev in enumerate(mesh.devices)]

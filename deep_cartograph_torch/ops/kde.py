@@ -94,11 +94,14 @@ def launch(grid_s: torch.Tensor, samples_s: torch.Tensor, out: torch.Tensor) -> 
     num_sms = torch.cuda.get_device_properties(device).multi_processor_count
     splits = lib.kde_logsumexp_splits(G, N, D, num_sms)
     part = torch.empty((2, splits, G), dtype=torch.float32, device=device)
-    status = lib.kde_logsumexp(
-        grid_s.data_ptr(), samples_s.data_ptr(), part[0].data_ptr(),
-        part[1].data_ptr(), out.data_ptr(), G, N, D, splits, device.index,
-        current_stream(device),
-    )
+    # The launcher sets the thread's device; the guard restores the
+    # caller's, which a launch on another card of a mesh would move.
+    with torch.cuda.device(device):
+        status = lib.kde_logsumexp(
+            grid_s.data_ptr(), samples_s.data_ptr(), part[0].data_ptr(),
+            part[1].data_ptr(), out.data_ptr(), G, N, D, splits, device.index,
+            current_stream(device),
+        )
     check_status(lib, status, "kde_logsumexp_kernel launch")
 
 

@@ -87,10 +87,13 @@ def launch(points: torch.Tensor, pairs: torch.Tensor, out: torch.Tensor) -> None
     lib = _library()
     C, N, _ = points.shape
     P = pairs.shape[0]
-    status = lib.pair_distances(
-        points.data_ptr(), pairs.data_ptr(), out.data_ptr(),
-        C, N, P, points.device.index, current_stream(points.device),
-    )
+    # The launcher sets the thread's device; the guard restores the
+    # caller's, which a launch on another card of a mesh would move.
+    with torch.cuda.device(points.device):
+        status = lib.pair_distances(
+            points.data_ptr(), pairs.data_ptr(), out.data_ptr(),
+            C, N, P, points.device.index, current_stream(points.device),
+        )
     check_status(lib, status, "pair_distances_kernel launch")
 
 

@@ -73,10 +73,13 @@ def launch(coords: torch.Tensor, out: torch.Tensor) -> None:
     entry point."""
     lib = _library()
     F, A, _ = coords.shape
-    status = lib.pairwise_distance_matrix(
-        coords.data_ptr(), out.data_ptr(), F, A, coords.device.index,
-        current_stream(coords.device),
-    )
+    # The launcher sets the thread's device; the guard restores the
+    # caller's, which a launch on another card of a mesh would move.
+    with torch.cuda.device(coords.device):
+        status = lib.pairwise_distance_matrix(
+            coords.data_ptr(), out.data_ptr(), F, A, coords.device.index,
+            current_stream(coords.device),
+        )
     check_status(lib, status, "pairwise_distance_matrix_kernel launch")
 
 

@@ -12,8 +12,13 @@ Statistics the filter reads are rounded to 3 decimals on the host, as in
 the reference. The dip test (`dip_pvalues`) runs on the host: the dip
 statistics of all features at once through the OpenMP batch routine of
 `stats/csrc/diptest.cpp` (compiled by g++ at first use; a failed build
-raises), their p-values from the null table of `stats/dip.py`. The mesh
-sharding of feature blocks waits for ROADMAP Queue 1 item 8.
+raises), their p-values from the null table of `stats/dip.py`.
+
+With a mesh of several devices (`parallel.mesh.mesh_for`), entropy and
+std of a host matrix of at least `utils.device.SMALL_WORK_ELEMENTS`
+elements shard the feature axis: each device reduces its contiguous slice
+of every feature block, with no collective, as in the JAX package (which
+leaves a matrix already on a device where it is).
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import numpy as np
 import torch
 
 from deep_cartograph_torch.ops.build import load_host_library
+from deep_cartograph_torch.parallel.mesh import mesh_for, shard
+from deep_cartograph_torch.utils import device as device_policy
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
 _DIP_SOURCE = Path(__file__).resolve().parent / "csrc" / "diptest.cpp"
@@ -83,6 +90,25 @@ def _device_blocks(features: Matrix, device: torch.device):
         yield torch.as_tensor(part).to(device=device, dtype=torch.float32)
 
 
+def _placed_blocks(features: Matrix, device: torch.device):
+    """float32 feature blocks as in `_device_blocks`; a large host matrix
+    with a mesh has each block's contiguous feature slices on the mesh's
+    devices (empty slices left out)."""
+    mesh = mesh_for(device)
+    on_host = not isinstance(features, torch.Tensor) or features.device.type == "cpu"
+    if (mesh is None or not on_host
+            or features.shape[0] * features.shape[1] < device_policy.SMALL_WORK_ELEMENTS):
+        for block in _device_blocks(features, device):
+            yield block
+        return
+    n, f = features.shape
+    width = max(1, min(f, BLOCK_ELEMENT_BUDGET // max(n, 1)))
+    for start in range(0, f, width):
+        for part in shard(features[:, start : start + width], mesh, axis=1):
+            if part.shape[1]:
+                yield part.float()
+
+
 def shannon_entropy(
     features: Matrix, num_bins: int = 100, device: DeviceLike = None
 ) -> np.ndarray:
@@ -92,7 +118,7 @@ def shannon_entropy(
     dev = resolve_device(device)
     parts = [
         _entropy_all(block, num_bins).cpu().numpy()
-        for block in _device_blocks(features, dev)
+        for block in _placed_blocks(features, dev)
     ]
     return np.round(np.concatenate(parts), 3)
 
@@ -101,7 +127,7 @@ def standard_deviation(features: Matrix, device: DeviceLike = None) -> np.ndarra
     """Per-feature population std, rounded to 3 decimals like the
     reference."""
     dev = resolve_device(device)
-    parts = [_std_all(block).cpu().numpy() for block in _device_blocks(features, dev)]
+    parts = [_std_all(block).cpu().numpy() for block in _placed_blocks(features, dev)]
     return np.round(np.concatenate(parts), 3)
 
 

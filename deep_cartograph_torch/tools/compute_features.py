@@ -7,7 +7,8 @@ PLUMED input that would compute the same features, and `colvars.dat`;
 `ref_topology.pdb` and `configuration.yml` go to the output folder. The
 features of the trajectories that share a topology are computed in shared
 chunks by one Featurizer (the pair distances through K1), on the tool's
-device.
+device, or, on CUDA with several cards visible, sharded by frames over all
+of them.
 """
 
 from __future__ import annotations
@@ -48,19 +49,15 @@ _featurizer_cache: Dict = {}
 def engine_device(engine: Dict, device: DeviceLike = None) -> torch.device:
     """The featurization device from the `engine` block: "auto" and
     "default" mean the tool's device (CUDA unless `device="cpu"`), "cpu"
-    the host. A setting the port cannot honour raises."""
+    the host. A setting the port cannot honour raises. On CUDA the
+    Featurizer shards its frames over every visible card; `shard_frames`
+    is read nowhere, as in the JAX package."""
     if engine["dtype"] != "float32":
         raise ValueError(
             f"engine.dtype {engine['dtype']!r} is not supported: the port "
             "featurizes in float32 only."
         )
-    dev = resolve_device("cpu" if engine["device"] == "cpu" else device)
-    if engine["shard_frames"] and dev.type == "cuda" and torch.cuda.device_count() > 1:
-        raise ValueError(
-            "engine.shard_frames over several GPUs is not supported yet; set "
-            "shard_frames: false to featurize on one GPU."
-        )
-    return dev
+    return resolve_device("cpu" if engine["device"] == "cpu" else device)
 
 
 def output_names(trajectories: List[str]) -> List[str]:

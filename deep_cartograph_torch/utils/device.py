@@ -13,6 +13,11 @@ import torch
 
 DeviceLike = Union[None, str, torch.device]
 
+# Below this many elements the JAX package keeps work off the mesh (and off
+# the accelerator); the port keeps the first use: the filter statistics
+# shard their features over a mesh only from this size up.
+SMALL_WORK_ELEMENTS = 5e7
+
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """`None` -> the current CUDA device; raises when CUDA is requested

@@ -15,6 +15,7 @@ import pytest
 from deep_cartograph_tpu.io import colvars as jcol
 from deep_cartograph_torch.io import colvars as col
 from tests.fixtures import make_shifted_ca_pdb
+from tests.test_torch_jax_native import jax_native, jax_native_library  # noqa: F401
 
 ULP = 1.2e-7
 NAMES = ["time", "dist-@CA_1-@CA_5", "sin-@CA_1-@CA_2-@CA_3-@CA_4",

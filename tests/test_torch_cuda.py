@@ -640,3 +640,59 @@ def test_fit_chunked_refuses_a_block_fn_it_cannot_capture(cuda):
 
     with pytest.raises(RuntimeError, match="not capturable"):
         est.fit_chunked(from_python_state, len(x), 100, blocks_per_dispatch=3)
+
+
+def _card_mesh():
+    """Every visible card, or the first listed four times with one."""
+    from deep_cartograph_torch.parallel.mesh import Mesh
+
+    n = torch.cuda.device_count()
+    return Mesh([f"cuda:{i}" for i in range(n)] if n > 1 else ["cuda:0"] * 4)
+
+
+def test_k1_on_a_mesh_launches_once_a_shard_and_matches_one_device(cuda, tmp_path):
+    """The Featurizer and FramesToCV on the card mesh: K1 once per shard of
+    a chunk, features equal to the one-device path (each frame alone)."""
+    from deep_cartograph_torch.deploy import FramesToCV, LinearProjection
+    from deep_cartograph_torch.geom.engine import Featurizer
+    from deep_cartograph_torch.io.topology import Topology
+    from deep_cartograph_torch.parallel.mesh import Mesh, use_mesh
+
+    pdb, dcd, coords = _ca_system(str(tmp_path), n_frames=403)
+    top = Topology.from_pdb(pdb)
+    labels = [f"dist-@CA_{i}-@CA_{j}" for i in range(1, 13) for j in range(i + 1, 13)]
+    labels += [f"{f}-@CA_1-@CA_2-@CA_3-@CA_4" for f in ("sin", "cos")]
+    mesh = _card_mesh()
+    with use_mesh(Mesh(["cuda:0"])):
+        one = Featurizer(top, labels).featurize_trajectory(dcd, frame_chunk=128)
+    with use_mesh(mesh):
+        before = torch_pd.STATS.launches
+        got = Featurizer(top, labels).featurize_trajectory(dcd, frame_chunk=128)
+        torch.cuda.synchronize()
+        assert torch_pd.STATS.launches - before == 4 * len(mesh)  # 4 chunks
+        np.testing.assert_allclose(got, one, atol=1e-6, rtol=0)
+        n = len(labels)
+        projection = LinearProjection(np.zeros(n), np.ones(n), np.eye(n)[:, :2],
+                                      np.zeros(2), np.ones(2))
+        before = torch_pd.STATS.launches
+        cv = FramesToCV(projection, top, labels)(coords)
+        assert torch_pd.STATS.launches - before == len(mesh)
+    np.testing.assert_allclose(cv, one[:, :2], atol=1e-6, rtol=0)
+
+
+def test_k2_on_a_mesh_launches_once_a_shard_and_matches_one_device(cuda):
+    from deep_cartograph_torch.parallel.mesh import use_mesh
+    from deep_cartograph_torch.parallel.sharding import sharded_kde_logdensity
+
+    rng = np.random.default_rng(5)
+    samples = rng.normal(0, 1, (20_003, 2)).astype(np.float32)
+    grid = rng.uniform(-3, 3, (900, 2)).astype(np.float32)
+    mesh = _card_mesh()
+    with use_mesh(mesh):
+        before = torch_kde.STATS.launches
+        got = sharded_kde_logdensity(samples, grid, 0.1)
+        assert torch_kde.STATS.launches - before == len(mesh)
+    one = torch_kde.kde_logsumexp(torch.as_tensor(grid, device="cuda"),
+                                  torch.as_tensor(samples, device="cuda"), 50.0)
+    want = one.cpu().numpy() - np.log(len(samples))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)

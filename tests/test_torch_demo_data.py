@@ -12,6 +12,7 @@ import pytest
 from deep_cartograph_torch.io.dcd import read_dcd, read_dcd_header
 from deep_cartograph_torch.utils import demo_data as tdemo
 from deep_cartograph_tpu.utils import demo_data as jdemo
+from tests.test_torch_jax_native import jax_native, jax_native_library  # noqa: F401
 
 
 def test_systems_equal_the_jax_generators(tmp_path):

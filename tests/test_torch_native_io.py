@@ -24,6 +24,7 @@ from deep_cartograph_tpu.io import colvars as jcolvars
 from deep_cartograph_tpu.io import dcd as jdcd
 from deep_cartograph_tpu.native.build import load_native
 from deep_cartograph_tpu.stats import descriptors as jdesc
+from tests.test_torch_jax_native import jax_native, jax_native_library  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

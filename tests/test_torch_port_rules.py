@@ -507,3 +507,61 @@ def test_native_code_is_the_ports_own_and_a_failed_build_raises(monkeypatch, tmp
     ):
         with pytest.raises(RuntimeError, match=f"g\\+\\+ not found; {source}"):
             call()
+
+
+PARALLEL_MODULES = ("__init__", "mesh", "sharding", "training")
+
+
+def test_the_parallel_package_imports_no_jax():
+    """parallel/* exist, fall under the import rules above (which walk the
+    whole package), and load neither JAX nor the JAX package."""
+    files = [os.path.join(PACKAGE_DIR, "parallel", f"{m}.py") for m in PARALLEL_MODULES]
+    assert all(os.path.isfile(f) for f in files)
+    assert set(files) <= set(_package_files())
+    assert all(_forbidden_imports(f) == [] for f in files)
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys; import deep_cartograph_torch.parallel.training, "
+         "deep_cartograph_torch.parallel; print(sorted(m for m in sys.modules if "
+         "m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'deep_cartograph_tpu')))"],
+        cwd=REPO_ROOT, check=True, capture_output=True, text=True, timeout=120,
+    ).stdout.strip()
+    assert out == "[]"
+
+
+def test_parallel_entry_points_raise_without_cuda(no_cuda):
+    """get_mesh() is every visible card and raises without one; a mesh of
+    CUDA devices raises too; only a mesh the caller builds holds the CPU,
+    and nothing shards a CPU call without one."""
+    from deep_cartograph_torch.parallel import (
+        Mesh,
+        get_mesh,
+        init_distributed,
+        mesh_for,
+        use_mesh,
+    )
+    from deep_cartograph_torch.parallel.sharding import (
+        sharded_covariances,
+        sharded_feature_matrix_stats,
+        sharded_kde_logdensity,
+    )
+
+    x = np.zeros((8, 2), np.float32)
+    for call in (
+        get_mesh,
+        lambda: Mesh(("cuda:0",)),
+        lambda: Mesh(("cuda",) * 2),
+        lambda: sharded_covariances(x, x),
+        lambda: sharded_feature_matrix_stats(x),
+        lambda: sharded_kde_logdensity(x[:, 0], x[:, 0], 0.1),
+        lambda: init_distributed("127.0.0.1:1", 2, 0),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert mesh_for(torch.device("cpu")) is None
+    with use_mesh(Mesh(("cpu", "cpu"))) as mesh:
+        assert get_mesh() is mesh and get_mesh().devices == (torch.device("cpu"),) * 2
+        assert mesh_for(torch.device("cpu")) is mesh
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_mesh()
+    with pytest.raises(ValueError, match="Unsupported mesh device"):
+        Mesh(("meta",))

@@ -27,6 +27,7 @@ from deep_cartograph_torch.models.weights import params_from_flax
 from deep_cartograph_tpu import tools as jax_tools
 from deep_cartograph_tpu.cv.deep import NonLinear as JaxNonLinear
 from tests.fixtures import make_ca_system
+from tests.test_torch_jax_native import jax_native, jax_native_library  # noqa: F401
 
 torch.set_num_threads(2)
 

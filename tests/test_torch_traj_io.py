@@ -24,6 +24,7 @@ from deep_cartograph_tpu.io import boxes as jboxes
 from deep_cartograph_tpu.io import traj as jtraj
 from deep_cartograph_tpu.io.topology import Topology as JTopology
 from tests.fixtures import make_backbone_system
+from tests.test_torch_jax_native import jax_native, jax_native_library  # noqa: F401
 
 FORMATS = (".dcd", ".xtc", ".trr", ".pdb", ".xyz", ".crd", ".nc")
 
