@@ -140,11 +140,14 @@ Phases, each failing the run (non-zero exit) if it fails:
    to the one-device features and phase 3's (bit-equal expected) and to
    phase 10's int16 bound; FramesToCV over the 100,000 frames; entropy and
    std of the host feature matrix, feature-sharded; TICA at 100,000 x 586
-   through tica_sharded; the streaming HTICA at phase 4's shape with its
-   subspaces over the mesh; deep-TICA with its tries over the mesh (2
-   epochs); the 2-D FES through _kde_fes_sharded (K2 on each shard); one
-   data-parallel step over an NCCL group of one process. Each step runs
-   once on a mesh of the first card alone and twice on the mesh, timed.
+   with frame-sharded covariances (its projection held to the one-device
+   one within the one-ulp spread); the streaming HTICA at phase 4's shape
+   with its subspaces over the mesh; deep-TICA with its tries over the
+   mesh (2 epochs); the 2-D FES with each block's samples over the mesh
+   (K2 on each shard); one Adam and one SGD data-parallel step over an
+   NCCL group of one process (SGD's held to the full batch's gradient).
+   Each step runs once on a mesh of the first card alone and twice on the
+   mesh, timed.
 
 Prints the nvidia-smi line, the [smoke] lines (times beside the card's name
 and power limit), then one JSON line {"kernels": [...]} (each kernel's
@@ -391,6 +394,9 @@ DIP_TOL = 1e-12               # p-values, batch against the Python dip
 HTICA_BLOCK = 2_000           # generated block: 10 blocks of phase 4's 20,000 frames
 HTICA_BLOCKS_PER_DISPATCH = 5
 FUSED_TOL = 1e-5              # fit_fused and fit_chunked against fit (same moments)
+# Phase 11: a data-parallel SGD step's summed gradient against the full
+# batch's (float32 sums over 8,192 rows in another order).
+DP_GRADIENT_RTOL = 1e-4
 # int16 features against float32 (int16_excess, dihedral_error_bound): the
 # float32 rounding of the two feature computations, beyond what the
 # quantization moves.
@@ -1094,7 +1100,7 @@ def streamed_c0_errors(stream, x: np.ndarray, subspaces: int) -> dict:
     a64 = batched(xn[:-lag].double())
     want = a64.transpose(1, 2) @ a64 / a64.shape[1]
     sh = StreamingHTICA(xn.shape[1], subspaces, 1, 1, lag, device=stream.device)
-    got = _moments_to_covs(sh._pass(lambda: iter([xn]), subspaces, width))[0]
+    got = _moments_to_covs(sh._pass(lambda: iter([xn]))[0])[0]
     a32 = batched(xn[:-lag])
     float32 = a32.transpose(1, 2) @ a32 / a32.shape[1]
 
@@ -2955,15 +2961,11 @@ def multi_gpu(calc, ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
     import torch.distributed as dist
 
     from deep_cartograph_torch.cv.htica_stream import StreamingHTICA
-    from deep_cartograph_torch.cv.tica_math import tica_sharded
+    from deep_cartograph_torch.cv.tica_math import tica
     from deep_cartograph_torch.deploy import FramesToCV
     from deep_cartograph_torch.features.grammar import compile_plan
     from deep_cartograph_torch.fes.kde import compute_fes
-    from deep_cartograph_torch.geom.engine import (
-        Featurizer,
-        ShardedChunkEvaluator,
-        auto_chunk_size,
-    )
+    from deep_cartograph_torch.geom.engine import Featurizer, auto_chunk_size
     from deep_cartograph_torch.geom.kernels import PlanEvaluator
     from deep_cartograph_torch.io.topology import Topology
     from deep_cartograph_torch.models.training import Optimizer
@@ -3001,8 +3003,7 @@ def multi_gpu(calc, ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
     featurizer = Featurizer(top, labels, device=device)
     chunks = -(-N_FRAMES // auto_chunk_size(CHUNK, N_ATOMS, len(labels)))
     with use_mesh(mesh):
-        check(isinstance(featurizer.evaluator, ShardedChunkEvaluator),
-              "the Featurizer shards over the mesh")
+        check(featurizer.evaluator.mesh is mesh, "the Featurizer shards over the mesh")
     for upload in ("float32", "int16"):
         before = count(k1)
         single, sharded = both(f"featurize_{upload}", lambda: featurizer.featurize_trajectory(
@@ -3048,24 +3049,44 @@ def multi_gpu(calc, ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
                                     and np.array_equal(std, ctx["std"]))
     check(out["entropy_std_equal"], "feature-sharded entropy and std equal phase 3's")
 
-    # 4. TICA through the calculator: tica_sharded at 100,000 x 586.
-    def tica_calc():
+    # 4. TICA through the calculator, its covariances frame-sharded at
+    # 100,000 x 586. C0's condition number is near 2e7, so the weights are
+    # ill-determined in float32: the projection is held to the one-device
+    # one within its one-ulp spread (`conditioning_tol`), as in phase 4.
+    def tica_calc(data=None):
         t = linear_calculator("tica", os.path.join(tmp, "multi_gpu_tica"), device)
-        t._set_training_data(ctx["kept_features"], np.zeros(N_FRAMES, np.int64), ctx["kept"])
+        t._set_training_data(ctx["kept_features"] if data is None else data,
+                             np.zeros(N_FRAMES, np.int64), ctx["kept"])
         t.compute_cv()
         return t
 
+    def tica_projection(t):
+        t.normalize_cv()
+        return t.project_data(t.training_data, normalize_data=False)
+
     tica_one, tica_mesh = both("tica", tica_calc)
+    with use_mesh(one):
+        noisy = tica_calc(with_ulp_noise(ctx["kept_features"]))
+    jitter, ref = tica_projection(noisy), tica_projection(tica_one)
     out["tica_eigenvalue_err"] = float(np.abs(np.asarray(tica_mesh.eigenvalues_)
                                               - tica_one.eigenvalues_).max())
     out["tica_weights_err"] = float(np.abs(align_columns(tica_mesh.cv, tica_one.cv)
                                            - tica_one.cv).max() / np.abs(tica_one.cv).max())
+    out["tica_projection_err"] = float(np.abs(align_columns(tica_projection(tica_mesh), ref)
+                                              - ref).max())
+    out["tica_ulp_noise_spread"] = float(np.abs(align_columns(jitter, ref) - ref).max())
+    out["tica_weights_ulp_noise_spread"] = float(np.abs(
+        align_columns(noisy.cv, tica_one.cv) - tica_one.cv).max() / np.abs(tica_one.cv).max())
     x = ctx["kept_features"]
-    _, out["tica_sharded_fn_s"] = synced(lambda: tica_sharded(x[:-10], x[10:], 2, mesh),
-                                            device)
-    check(out["tica_eigenvalue_err"] <= EIGVAL_TOL,
-          f"sharded TICA eigenvalues within {EIGVAL_TOL} ({out['tica_eigenvalue_err']})")
-    del tica_one, tica_mesh
+    _, out["tica_sharded_fn_s"] = synced(
+        lambda: tica(x[:-10], x[10:], 2, device=device, mesh=mesh), device)
+    tol = conditioning_tol(out["tica_ulp_noise_spread"])
+    check(out["tica_eigenvalue_err"] <= EIGVAL_TOL and out["tica_projection_err"] <= tol,
+          f"sharded TICA eigenvalues within {EIGVAL_TOL} ({out['tica_eigenvalue_err']}), "
+          f"projection within {tol:.3g} of one device ({out['tica_projection_err']}; "
+          f"weights {out['tica_weights_err']:.3g} of the largest, one-ulp input noise "
+          f"{out['tica_weights_ulp_noise_spread']:.3g})")
+    del tica_one, tica_mesh, noisy, jitter, ref
 
     # 5. The streaming HTICA at phase 4's shape, the subspaces over the mesh.
     names = ctx["kept"][:HTICA_STREAM_FEATURES]
@@ -3166,11 +3187,21 @@ def multi_gpu(calc, ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
                        torch.tensor([1e-3], device=device))
         out["dp_step_err"] = float((params["w"] - plain["w"].detach()).abs().max())
         out["dp_loss_rel_err"] = abs(float(dp_loss) / float(plain_loss) - 1)
+        # Adam's first update is about lr * sign(g); SGD's (lr 1) is the
+        # summed gradient itself, held to the full batch's
+        sgd = Optimizer("SGD", {"lr": 1.0})
+        sgd_params = {"w": w0.clone()}
+        make_dp_train_step(loss, sgd, Mesh(mesh.devices, group=dist.group.WORLD), 1.0)(
+            sgd_params, sgd.init(sgd_params), batch)
+        out["dp_sgd_gradient_rel_err"] = float(
+            ((w0 - sgd_params["w"]) - grad).abs().max() / grad.abs().max())
     finally:
         dist.destroy_process_group()
-    check(out["dp_step_err"] <= 1e-5 and out["dp_loss_rel_err"] <= 1e-5,
+    check(out["dp_step_err"] <= 1e-5 and out["dp_loss_rel_err"] <= 1e-5
+          and out["dp_sgd_gradient_rel_err"] <= DP_GRADIENT_RTOL,
           f"the data-parallel step equals a plain step ({out['dp_step_err']}, "
-          f"{out['dp_loss_rel_err']})")
+          f"{out['dp_loss_rel_err']}; SGD against the full batch's gradient "
+          f"{out['dp_sgd_gradient_rel_err']})")
 
     out["launches"] = {st.name: count(st) for st in stats}
     out["phase11_s"] = time.perf_counter() - t_phase
@@ -3186,9 +3217,11 @@ def multi_gpu(calc, ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
     log(f"[{card}] multi_gpu held: features {'bit-equal' if out['featurize_float32_bit_equal'] else out['featurize_float32_err_vs_one']}, "
         f"int16 {out['featurize_int16_err_vs_one']:.3g}, FramesToCV "
         f"{out['frames_to_cv_err_vs_phase3']:.3g}, TICA eigenvalues "
-        f"{out['tica_eigenvalue_err']:.3g}, HTICA {out['htica_projection_err']:.3g}, "
-        f"training rel {out['train_loss_max_rel_diff']:.3g}, FES "
-        f"{out['fes_2d_err_vs_phase3']:.3g} kJ/mol, dp step {out['dp_step_err']:.3g}; "
+        f"{out['tica_eigenvalue_err']:.3g}, projection {out['tica_projection_err']:.3g} "
+        f"(one-ulp spread {out['tica_ulp_noise_spread']:.3g}), HTICA "
+        f"{out['htica_projection_err']:.3g}, training rel {out['train_loss_max_rel_diff']:.3g}, "
+        f"FES {out['fes_2d_err_vs_phase3']:.3g} kJ/mol, dp step {out['dp_step_err']:.3g}, "
+        f"SGD gradient rel {out['dp_sgd_gradient_rel_err']:.3g}; "
         f"launches {out['launches']}")
     log(json.dumps(out))
     if device == "cuda":

@@ -37,11 +37,12 @@ graph and replayed with the start index rewritten in place; on the CPU the
 same body runs eagerly. Both capture on one device and take no mesh, as
 in the JAX package.
 
-`fit` with a `mesh` (`parallel.mesh.Mesh`) shards the subspace axis: each
-block's contiguous feature slice, which holds whole subspaces, goes to its
-device, and each device accumulates its own subspaces' moments and solves
-their level-1 problems with no communication. Only the level-2 projected
-blocks are gathered, on the mesh's first device.
+`fit` shards the subspace axis over its `mesh` (`parallel.mesh.Mesh`;
+the device alone without one): each block's contiguous feature slice,
+which holds whole subspaces, goes to its device, and each device
+accumulates its own subspaces' moments and solves their level-1 problems
+with no communication. Only the level-2 projected blocks are gathered,
+on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -292,8 +293,8 @@ class StreamingHTICA:
     ):
         """`device`: None means CUDA (raises without a card); "cpu" runs on
         the host. `mesh`: shard the subspaces of `fit` over its devices
-        (the subspace count must divide over them); the results come to
-        its first device."""
+        instead (the subspace count must divide over them); the results
+        come to its first device."""
         if n_features % num_subspaces != 0:
             raise ValueError(
                 f"n_features ({n_features}) must divide evenly into "
@@ -301,12 +302,12 @@ class StreamingHTICA:
             )
         if lag_time < 1:
             raise ValueError(f"lag_time must be a positive integer, got {lag_time}.")
-        self.device = resolve_device(device) if mesh is None else mesh.devices[0]
-        self.mesh = mesh
-        if mesh is not None and num_subspaces % len(mesh):
+        self.mesh = mesh or Mesh((resolve_device(device),))
+        self.device = self.mesh.devices[0]
+        if num_subspaces % len(self.mesh):
             raise ValueError(
                 f"num_subspaces ({num_subspaces}) must divide evenly over the "
-                f"{len(mesh)}-device mesh (contiguous feature shards must align "
+                f"{len(self.mesh)}-device mesh (contiguous feature shards must align "
                 "with subspace boundaries).")
         self.n_features = n_features
         self.n_sub = num_subspaces
@@ -320,23 +321,21 @@ class StreamingHTICA:
         self.weights: Optional[np.ndarray] = None  # (F, cv_dim)
         self.eigenvalues_: Optional[np.ndarray] = None
 
-    def _stream_pairs(self, block_iter: Iterable, device=None, columns=None):
+    def _stream_pairs(self, block_iter: Iterable, device: torch.device, columns: slice):
         """(x_t, x_lag) device pairs, with a lag-frame carry so that pairs
         straddling block boundaries are kept. A None item is a segment break
         (a trajectory-file boundary): the carry resets, so no pair crosses
         it. A block longer than the lag yields two pairs, the (lag, F) seam
         against the carry and the block's interior, instead of a copy of
-        carry + block; the set of pairs is the same. `columns` (a slice)
-        takes only those features of each block, on `device`."""
+        carry + block; the set of pairs is the same. Only the `columns` of
+        each block are taken, on `device`."""
         lag = self.lag
         carry = None
         for block in block_iter:
             if block is None:
                 carry = None
                 continue
-            if columns is not None:
-                block = block[:, columns]
-            block = torch.as_tensor(block).to(device or self.device, torch.float32)
+            block = torch.as_tensor(block[:, columns]).to(device, torch.float32)
             if block.shape[0] > lag and (carry is None or carry.shape[0] == lag):
                 if carry is not None:
                     yield carry, block[:lag]
@@ -349,92 +348,69 @@ class StreamingHTICA:
                 yield block[:-lag], block[lag:]
             carry = block[-lag:]
 
-    def _pass(self, make_block_iter, n_sub: int, sub_d: int, project=None) -> dict:
-        """One pass of moments. Every pair is shifted by the first pair
-        block's mean: raw second moments cancel when feature means
-        dominate their variance, and covariances do not see a shift."""
-        shift = None
-        state = _zero_state(n_sub, sub_d, self.device)
-        for x_t, x_lag in self._stream_pairs(make_block_iter()):
-            if project is not None:
-                x_t, x_lag = project(x_t), project(x_lag)
-            if shift is None:
-                shift = x_t.double().mean(0)
-            _accumulate_moments(state, x_t, x_lag, n_sub, sub_d, shift=shift)
-        return state
+    def _pass(self, make_block_iter,
+              level1: Optional[List[torch.Tensor]] = None) -> List[dict]:
+        """One pass of moments over the blocks: one read of them, each mesh
+        device's contiguous feature slice (whole subspaces) streamed as
+        pairs on that device, in lockstep, into its own state (returned in
+        mesh order). With `level1` (each device's transform), the slices'
+        level-1 projections are gathered on the mesh's first device into
+        one level-2 state. Every pair is shifted by the first pair block's
+        mean: raw second moments cancel when feature means dominate their
+        variance, and covariances do not see a shift."""
+        mesh = self.mesh
+        if level1 is None:
+            states = [_zero_state(self.n_sub // len(mesh), self.sub_d, dev)
+                      for dev in mesh.devices]
+        else:
+            states = [_zero_state(1, self._z_dim, self.device)]
+        width = self.n_features // len(mesh)
+        sources = itertools.tee(make_block_iter(), len(mesh))
+        streams = [self._stream_pairs(src, dev, slice(i * width, (i + 1) * width))
+                   for i, (src, dev) in enumerate(zip(sources, mesh.devices))]
+        shifts: List = [None] * len(states)
+        for pairs in zip(*streams):
+            if level1 is not None:
+                pairs = [tuple(all_gather([self._project(p[k], w) for p, w in zip(pairs, level1)],
+                                          mesh.local(), 1) for k in (0, 1))]
+            for i, ((x_t, x_lag), state) in enumerate(zip(pairs, states)):
+                if shifts[i] is None:
+                    shifts[i] = x_t.double().mean(0)
+                _accumulate_moments(state, x_t, x_lag, *state["s1"].shape, shift=shifts[i])
+        return states
 
     def fit(self, make_block_iter: Callable[[], Iterable]) -> None:
         """make_block_iter: a callable returning a fresh iterator of
         (frames, n_features) blocks, called once per pass; None items are
-        segment breaks."""
-        if self.mesh is not None:
-            self._fit_sharded(make_block_iter)
-            return
-        self._solve_level1(self._pass(make_block_iter, self.n_sub, self.sub_d), "")
-        self._solve_level2(self._pass(make_block_iter, 1, self._z_dim, self._project))
-
-    def _sharded_pairs(self, make_block_iter) -> Iterable[List[tuple]]:
-        """Per step, the (x_t, x_lag) pairs of every device's feature slice,
-        on that device: one read of the blocks, each device's pair stream
-        advanced in lockstep (the streams pair alike)."""
-        n_dev = len(self.mesh)
-        width = self.n_features // n_dev
-        sources = itertools.tee(make_block_iter(), n_dev)
-        return zip(*[self._stream_pairs(src, dev, slice(i * width, (i + 1) * width))
-                     for i, (src, dev) in enumerate(zip(sources, self.mesh.devices))])
-
-    def _fit_sharded(self, make_block_iter) -> None:
-        """`fit` with the subspaces sharded over the mesh."""
-        devices = self.mesh.devices
-        per_dev = self.n_sub // len(devices)
-        shifts: List = [None] * len(devices)
-        states = [_zero_state(per_dev, self.sub_d, dev) for dev in devices]
-        for pairs in self._sharded_pairs(make_block_iter):
-            for i, (x_t, x_lag) in enumerate(pairs):
-                if shifts[i] is None:
-                    shifts[i] = x_t.double().mean(0)
-                _accumulate_moments(states[i], x_t, x_lag, per_dev, self.sub_d, shifts[i])
-        solved = [_run_batched_tica(*_moments_to_covs(st)[:2], self.reg, self.sub_out)
-                  for st in states]
-        evals1 = np.concatenate([w for w, _ in solved])
-        self.level1 = np.concatenate([v for _, v in solved])
-        level1_t = [torch.as_tensor(v, device=dev) for (_, v), dev in zip(solved, devices)]
-        self._level1_t = torch.as_tensor(self.level1, device=self.device)
-        logger.info("StreamingHTICA (sharded over %d devices) level 1: %d subspaces x %d "
-                    "-> %d dims (top eigenvalue %.4f)", len(devices), self.n_sub,
-                    self.sub_d, self.sub_out, float(evals1[:, 0].max()))
-
-        def project(x: torch.Tensor, level1: torch.Tensor) -> torch.Tensor:
-            xs = x.reshape(x.shape[0], per_dev, self.sub_d).transpose(0, 1)
-            return (xs @ level1).transpose(0, 1).reshape(x.shape[0], per_dev * self.sub_out)
-
-        local = self.mesh.local()
-        shift = None
-        state = _zero_state(1, self._z_dim, self.device)
-        for pairs in self._sharded_pairs(make_block_iter):
-            z_t = all_gather([project(x, w) for (x, _), w in zip(pairs, level1_t)], local, 1)
-            z_lag = all_gather([project(x, w) for (_, x), w in zip(pairs, level1_t)], local, 1)
-            if shift is None:
-                shift = z_t.double().mean(0)
-            _accumulate_moments(state, z_t, z_lag, 1, self._z_dim, shift)
-        self._solve_level2(state)
+        segment breaks. The subspaces shard over the mesh."""
+        how = f" (sharded over {len(self.mesh)} devices)" if len(self.mesh) > 1 else ""
+        level1 = self._solve_level1(self._pass(make_block_iter), how)
+        self._solve_level2(self._pass(make_block_iter, level1)[0])
 
     @property
     def _z_dim(self) -> int:
         return self.n_sub * self.sub_out
 
-    def _project(self, x: torch.Tensor) -> torch.Tensor:
-        """(b, n_features) through the level-1 transform: (b, S * sub_out)."""
-        xs = x.reshape(x.shape[0], self.n_sub, self.sub_d).transpose(0, 1)
-        return (xs @ self._level1_t).transpose(0, 1).reshape(x.shape[0], self._z_dim)
+    def _project(self, x: torch.Tensor, level1: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(b, s * sub_d) through the level-1 transform of those s subspaces
+        (default all of them): (b, s * sub_out)."""
+        level1 = self._level1_t if level1 is None else level1
+        s = level1.shape[0]
+        xs = x.reshape(x.shape[0], s, self.sub_d).transpose(0, 1)
+        return (xs @ level1).transpose(0, 1).reshape(x.shape[0], s * self.sub_out)
 
-    def _solve_level1(self, state: dict, how: str) -> None:
-        c0, ctau, _ = _moments_to_covs(state)
-        evals1, self.level1 = _run_batched_tica(c0, ctau, self.reg, self.sub_out)
+    def _solve_level1(self, states: List[dict], how: str) -> List[torch.Tensor]:
+        """Each state's subspaces solved on its device; returns each one's
+        level-1 transform there."""
+        solved = [_run_batched_tica(*_moments_to_covs(st)[:2], self.reg, self.sub_out)
+                  for st in states]
+        evals1 = np.concatenate([w for w, _ in solved])
+        self.level1 = np.concatenate([v for _, v in solved])
         self._level1_t = torch.as_tensor(self.level1, device=self.device)
         logger.info("StreamingHTICA%s level 1: %d subspaces x %d -> %d dims "
                     "(top eigenvalue %.4f)", how, self.n_sub, self.sub_d, self.sub_out,
                     float(evals1[:, 0].max()))
+        return [torch.as_tensor(v, device=st["s1"].device) for (_, v), st in zip(solved, states)]
 
     def _solve_level2(self, state: dict) -> None:
         c0_2, ctau_2, _ = _moments_to_covs(state)
@@ -509,8 +485,8 @@ class StreamingHTICA:
         def level2_block(start):
             return self._project(block_fn(start, *block_args))
 
-        self._solve_level1(self._block_pass(level1_block, n_blocks, block_size, k,
-                                            self.n_sub, self.sub_d), how)
+        self._solve_level1([self._block_pass(level1_block, n_blocks, block_size, k,
+                                             self.n_sub, self.sub_d)], how)
         self._solve_level2(self._block_pass(level2_block, n_blocks, block_size, k,
                                             1, self._z_dim))
 

@@ -31,7 +31,7 @@ from deep_cartograph_torch.cv.htica_stream import (
     StreamingHTICA,
     host_topk_eigh,
 )
-from deep_cartograph_torch.cv.tica_math import split_subspaces, tica, tica_sharded
+from deep_cartograph_torch.cv.tica_math import split_subspaces, tica
 from deep_cartograph_torch.deploy import LinearProjection
 from deep_cartograph_torch.io.colvars import (
     iter_features_chunks,
@@ -39,7 +39,7 @@ from deep_cartograph_torch.io.colvars import (
     should_stream_colvars,
     translation_is_identity,
 )
-from deep_cartograph_torch.parallel.mesh import mesh_for
+from deep_cartograph_torch.parallel.mesh import Mesh, mesh_for
 
 logger = logging.getLogger(__name__)
 
@@ -379,15 +379,14 @@ class TICACalculator(LinearCalculator):
             self._compute_cv_streaming()
             return
         _, reg = self._lagged_config()
+        # frame-sharded covariance accumulation over the mesh, given 4
+        # pairs a device
         mesh = mesh_for(self.device)
+        if self.x_t.shape[0] < 4 * len(mesh):
+            mesh = Mesh((self.device,))
         try:
-            if mesh is not None and self.x_t.shape[0] >= 4 * len(mesh):
-                # frame-sharded covariance accumulation over the mesh
-                self.eigenvalues_, self.cv = tica_sharded(
-                    self.x_t, self.x_lag, self.cv_dimension, mesh, reg=reg)
-            else:
-                self.eigenvalues_, self.cv = tica(self.x_t, self.x_lag, self.cv_dimension,
-                                                  reg=reg, device=self.device)
+            self.eigenvalues_, self.cv = tica(self.x_t, self.x_lag, self.cv_dimension,
+                                              reg=reg, device=self.device, mesh=mesh)
         except Exception as exc:
             logger.error("TICA could not be computed. Error message: %s", exc)
 
@@ -426,9 +425,9 @@ class HTICACalculator(LinearCalculator):
         # its own subspaces' moments with no communication; only the
         # level-2 projected covariance crosses devices.
         mesh = mesh_for(self.device)
-        if mesh is not None and n_sub % len(mesh):
-            mesh = None
-        if mesh is not None:
+        if n_sub % len(mesh):
+            mesh = Mesh((self.device,))
+        if len(mesh) > 1:
             logger.info("Streaming HTICA sharded over %d devices (%d subspaces / device).",
                         len(mesh), n_sub // len(mesh))
         sh = StreamingHTICA(padded, n_sub, self.subspaces_dimension, self.cv_dimension,

@@ -14,6 +14,8 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from deep_cartograph_torch.parallel.mesh import Mesh
+from deep_cartograph_torch.parallel.sharding import sharded_covariances
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
 Array = Union[np.ndarray, torch.Tensor]
@@ -109,16 +111,20 @@ def tica(
     reg: float = 1e-6,
     remove_average: bool = True,
     device: DeviceLike = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """TICA eigenvalues (descending) and eigenvectors (features, out), as
     float32 numpy arrays. `device`: None means CUDA (raises without a
-    card); "cpu" runs on the host."""
-    dev = resolve_device(device)
-    xt = torch.as_tensor(x_t).to(dev, torch.float32)
-    xl = torch.as_tensor(x_lag).to(dev, torch.float32)
+    card); "cpu" runs on the host. The covariances are summed from
+    frame-sharded partials over `mesh` (`device` alone by default;
+    `parallel.sharding.sharded_covariances`), then solved on its first
+    device."""
+    mesh = mesh or Mesh((resolve_device(device),))
     if remove_average:
-        c0, ctau, _ = timelagged_covariances(xt, xl)
+        c0, ctau = sharded_covariances(x_t, x_lag, mesh)
     else:
+        xt = torch.as_tensor(x_t).to(mesh.devices[0], torch.float32)
+        xl = torch.as_tensor(x_lag).to(mesh.devices[0], torch.float32)
         n = xt.shape[0]
         c0 = xt.T @ xt / n
         ctau = 0.5 * (xt.T @ xl + xl.T @ xt) / n
@@ -126,23 +132,6 @@ def tica(
     evals = w[:out_features].cpu().numpy()
     evecs = _fix_sign(v[:, :out_features].cpu().numpy())
     return evals, evecs
-
-
-def tica_sharded(
-    x_t: Array,
-    x_lag: Array,
-    out_features: int,
-    mesh=None,
-    reg: float = 1e-6,
-) -> Tuple[np.ndarray, np.ndarray]:
-    """Frame-sharded TICA: the covariances are summed from per-device
-    partials over the mesh (`parallel.sharding.sharded_covariances`), then
-    solved on its first device as `tica` solves them."""
-    from deep_cartograph_torch.parallel.sharding import sharded_covariances
-
-    c0, ctau = sharded_covariances(x_t, x_lag, mesh)
-    w, v = generalized_eigh(ctau, c0, reg)
-    return w[:out_features].cpu().numpy(), _fix_sign(v[:, :out_features].cpu().numpy())
 
 
 def split_subspaces(n_features: int, num_subspaces: int) -> List[np.ndarray]:

@@ -1,8 +1,8 @@
 """Serving: frames -> CV values on the device.
 
 The port of the JAX package's deploy.py: `FramesToCV` featurizes a chunk of
-frames with a `PlanEvaluator` and projects the features through a trained
-CV, without leaving the device between the two steps:
+frames (geom/engine.py's `ShardedChunkEvaluator`) and projects the features
+through a trained CV, without leaving the device between the two steps:
 
     pipeline = FramesToCV(projection, topology, features_list)
     cv_values = pipeline(coords_chunk)      # (C, A, 3) -> (C, dim)
@@ -14,11 +14,11 @@ a trained calculator gives its own (`projection()`).
 
     pipeline = FramesToCV.from_model_zip("model.zip", "topology.pdb")
 
-With a mesh of several devices (`parallel.mesh.mesh_for`: every visible
-card, unless the caller asked for another device), every batch is sharded
-by frames: each device featurizes its slice (K1) and projects it through
-its own copy of the projection, and the CV values are gathered in frame
-order on the mesh's first device.
+Every batch is sharded by frames over `parallel.mesh.mesh_for(device)`
+(the device alone, or every visible card unless the caller asked for
+another device): each device featurizes its slice (K1) and projects it
+through its own copy of the projection, and the CV values are gathered
+in frame order on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -33,7 +33,6 @@ from torch import nn
 
 from deep_cartograph_torch.features.grammar import compile_plan
 from deep_cartograph_torch.geom.engine import ShardedChunkEvaluator
-from deep_cartograph_torch.geom.kernels import PlanEvaluator
 from deep_cartograph_torch.io.topology import Topology
 from deep_cartograph_torch.models.networks import TrainedNet
 from deep_cartograph_torch.parallel.mesh import mesh_for, shard
@@ -95,27 +94,21 @@ class FramesToCV:
         device: DeviceLike = None,
     ):
         """`device`: None means CUDA (raises without a card); "cpu" runs on
-        the host. Batches shard over `mesh_for(device)` when that is a
-        mesh."""
+        the host. Batches shard over `mesh_for(device)`."""
         self.device = resolve_device(device)
         self.topology = topology
         self.plan = compile_plan(list(features_list), topology)
         self.projection = projection.to(self.device).eval()
         self.mesh = mesh_for(self.device)
-        if self.mesh is None:
-            self.evaluator = PlanEvaluator(self.plan, device=self.device)
-        else:
-            self.evaluator = ShardedChunkEvaluator(self.plan, self.mesh)
-            self._projections = {self.mesh.devices[0]: self.projection}
-            for dev in self.mesh.devices:
-                if dev not in self._projections:
-                    self._projections[dev] = copy.deepcopy(projection).to(dev).eval()
+        self.evaluator = ShardedChunkEvaluator(self.plan, self.mesh)
+        self._projections = {self.mesh.devices[0]: self.projection}
+        for dev in self.mesh.devices:
+            if dev not in self._projections:
+                self._projections[dev] = copy.deepcopy(projection).to(dev).eval()
 
     @torch.no_grad()
     def eval_raw(self, coords) -> torch.Tensor:
         """(C, A, 3) Angstrom frames -> (C, cv_dimension) device tensor."""
-        if self.mesh is None:
-            return self.projection(self.evaluator.eval_raw(coords))
         feats = self.evaluator.eval_local(shard(coords, self.mesh))
         return all_gather([self._projections[f.device](f) for f in feats], self.mesh.local())
 

@@ -3,10 +3,10 @@
 The port of the JAX package's fes/kde.py. Small problems evaluate the whole
 (grid, samples) log-kernel matrix in plain PyTorch; above 5e7 grid x sample
 pairs the streaming kernel K2 (ops/kde.py) evaluates each block's
-logsumexp without ever holding that matrix, and with a mesh of several
-devices (`parallel.mesh.mesh_for`) each block's samples are sharded over
-it, K2 on every shard (`_kde_fes_sharded`). `plot_fes` computes the
-surface, then draws it (matplotlib, imported only there).
+logsumexp without ever holding that matrix, each block's samples sharded
+over the call's mesh (`parallel.mesh.mesh_for`: the device alone, or
+several, K2 on every shard). `plot_fes` computes the surface, then draws
+it (matplotlib, imported only there).
 """
 
 from __future__ import annotations
@@ -18,9 +18,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from deep_cartograph_torch.ops.kde import kde_logsumexp
-from deep_cartograph_torch.parallel.mesh import Mesh, mesh_for
-from deep_cartograph_torch.parallel.sharding import sharded_kde_logdensity
+from deep_cartograph_torch.parallel.mesh import mesh_for
+from deep_cartograph_torch.parallel.sharding import sharded_kde_logsumexp
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
 KB_KJ_MOL = 0.00831446261815324  # kJ/(mol K)
@@ -97,40 +96,20 @@ def _kde_fes_streaming(
     num_blocks: int,
     device: DeviceLike = None,
 ):
-    """Blockwise FES through the streaming logsumexp kernel K2. Returns
-    numpy arrays (fes, error or None)."""
+    """Blockwise FES through the streaming logsumexp kernel K2, each
+    block's samples sharded over `mesh_for(device)`
+    (`parallel.sharding.sharded_kde_logsumexp`). Returns numpy arrays
+    (fes, error or None)."""
     dev = resolve_device(device)
+    mesh = mesh_for(dev)
     inv_two_bw2 = 1.0 / (2.0 * bandwidth * bandwidth)
     grid_d = torch.as_tensor(np.asarray(grid_points, np.float32), device=dev)
     data_d = torch.as_tensor(np.asarray(data, np.float32), device=dev)
     fes, error = _blockwise_fes(
         data_d, kt, num_blocks,
-        lambda chunk: kde_logsumexp(grid_d, chunk, inv_two_bw2),
+        lambda chunk: sharded_kde_logsumexp(grid_d, chunk, inv_two_bw2, mesh),
     )
     return fes.cpu().numpy(), None if error is None else error.cpu().numpy()
-
-
-def _kde_fes_sharded(
-    data: np.ndarray,
-    grid_points: np.ndarray,
-    bandwidth: float,
-    kt: float,
-    num_blocks: int,
-    mesh: Optional[Mesh] = None,
-):
-    """Blockwise FES with each block's samples frame-sharded over the mesh
-    (`parallel.sharding.sharded_kde_logdensity`: K2 per shard, the shards'
-    logsumexps combined). Returns numpy arrays (fes, error or None)."""
-    block_len = data.shape[0] // num_blocks
-    fes, error = _blockwise_fes(
-        torch.as_tensor(np.asarray(data, np.float32)), kt, num_blocks,
-        # sharded_kde_logdensity returns a normalized log density; undo the
-        # 1/len normalization to get the raw block logsumexp.
-        lambda chunk: torch.as_tensor(
-            sharded_kde_logdensity(chunk, grid_points, bandwidth, mesh)
-            + np.float32(math.log(block_len))),
-    )
-    return fes.numpy(), None if error is None else error.numpy()
 
 
 def compute_fes(
@@ -173,15 +152,9 @@ def compute_fes(
     n_trim = (n // num_blocks) * num_blocks
 
     if grid_points.shape[0] * n_trim > STREAMING_THRESHOLD:
-        mesh = mesh_for(dev)
-        if mesh is not None:
-            fes, error = _kde_fes_sharded(
-                data[:n_trim], grid_points, bandwidth, kt, num_blocks, mesh
-            )
-        else:
-            fes, error = _kde_fes_streaming(
-                data[:n_trim], grid_points, bandwidth, kt, num_blocks, dev
-            )
+        fes, error = _kde_fes_streaming(
+            data[:n_trim], grid_points, bandwidth, kt, num_blocks, dev
+        )
     else:
         fes_t, error_t = _kde_fes_device(
             torch.as_tensor(data[:n_trim], device=dev),

@@ -5,11 +5,12 @@ in chunks, copied to the device, and every feature of every frame in the
 chunk is evaluated there (geom/kernels.py). Chunks keep their natural
 length: the kernels mask the ragged last chunk, so nothing is padded.
 
-With a mesh of several devices (`parallel.mesh.mesh_for`: every visible
-card, unless the caller asked for another device), the Featurizer shards
-the frames of every chunk over the mesh (`ShardedChunkEvaluator`): each
-device featurizes its contiguous slice of frames through K1, and the
-outputs are gathered in frame order on the mesh's first device.
+The Featurizer shards the frames of every chunk over
+`parallel.mesh.mesh_for(device)` (`ShardedChunkEvaluator`; the device
+alone, or every visible card unless the caller asked for another
+device): each device featurizes its contiguous slice of frames through
+K1, and the outputs are gathered in frame order on the mesh's first
+device.
 """
 
 from __future__ import annotations
@@ -26,11 +27,7 @@ from deep_cartograph_torch.features.grammar import compile_plan
 from deep_cartograph_torch.geom.kernels import PlanEvaluator
 from deep_cartograph_torch.io.topology import Topology
 from deep_cartograph_torch.io.traj import iter_frame_chunks
-from deep_cartograph_torch.io.upload import (
-    resolve_upload_mode,
-    upload_coords,
-    upload_coords_sharded,
-)
+from deep_cartograph_torch.io.upload import resolve_upload_mode, upload_coords_sharded
 from deep_cartograph_torch.parallel.mesh import Mesh, get_mesh, mesh_for, shard
 from deep_cartograph_torch.parallel.sharding import all_gather
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
@@ -62,9 +59,8 @@ class Featurizer:
         before coordinate features (PLUMED FIT_TO_TEMPLATE equivalent).
 
         `device`: None means CUDA (raises without a card); "cpu" runs on the
-        host. Each call shards its frames over `mesh_for(device)` when that
-        is a mesh (the JAX package's auto-shard over a multi-device
-        backend)."""
+        host. Each call shards its frames over `mesh_for(device)` (the JAX
+        package's auto-shard over a multi-device backend)."""
         self.topology = topology
         self.features_list = list(features_list)
         self.plan = compile_plan(self.features_list, topology)
@@ -78,20 +74,14 @@ class Featurizer:
         self._evaluators: dict = {}
 
     @property
-    def evaluator(self):
-        """The evaluator of a call made now: a `ShardedChunkEvaluator` over
-        `mesh_for(self.device)` when that is a mesh, else one
-        `PlanEvaluator` on the device."""
+    def evaluator(self) -> "ShardedChunkEvaluator":
+        """The evaluator of a call made now, over `mesh_for(self.device)`."""
         return self._evaluator_for(mesh_for(self.device))
 
-    def _evaluator_for(self, mesh: Optional[Mesh]):
-        key = None if mesh is None else mesh.devices
-        if key not in self._evaluators:
-            ref, weights = self._fit
-            self._evaluators[key] = (
-                PlanEvaluator(self.plan, ref, weights, device=self.device) if mesh is None
-                else ShardedChunkEvaluator(self.plan, mesh, ref, weights))
-        return self._evaluators[key]
+    def _evaluator_for(self, mesh: Mesh) -> "ShardedChunkEvaluator":
+        if mesh.devices not in self._evaluators:
+            self._evaluators[mesh.devices] = ShardedChunkEvaluator(self.plan, mesh, *self._fit)
+        return self._evaluators[mesh.devices]
 
     def __call__(self, coords: np.ndarray) -> np.ndarray:
         return self.evaluator(coords)
@@ -296,22 +286,21 @@ class Featurizer:
         )
 
 
-def _eval_quantized(evaluator, block: np.ndarray) -> torch.Tensor:
+def _eval_quantized(evaluator: "ShardedChunkEvaluator", block: np.ndarray) -> torch.Tensor:
     """Featurize a chunk through the int16 upload (io/upload.py): quantized
-    on the host as one block, then, on a mesh, its codes sliced by frames,
+    on the host as one block, its codes sliced by frames over the mesh,
     each slice copied to its device and dequantized there, K1 per slice."""
-    if isinstance(evaluator, ShardedChunkEvaluator):
-        return evaluator.eval_shards(upload_coords_sharded(block, evaluator.mesh))
-    return evaluator.eval_raw(upload_coords(block, "int16", evaluator.device))
+    return evaluator.eval_shards(upload_coords_sharded(block, evaluator.mesh))
 
 
 class ShardedChunkEvaluator:
-    """Frame-sharded adapter over `PlanEvaluator` for a mesh of several
+    """Frame-sharded adapter over `PlanEvaluator` for a mesh of one or more
     devices: every chunk splits into contiguous frame slices, one per mesh
     entry, each featurized on its device (K1); the outputs are gathered in
-    frame order on the mesh's first device. A device listed several times
-    keeps one evaluator. Exposes the PlanEvaluator call surface
-    (`__call__`, `eval_raw`)."""
+    frame order on the mesh's first device (a mesh of one is one
+    `PlanEvaluator` call). A device listed several times keeps one
+    evaluator. Exposes the PlanEvaluator call surface (`__call__`,
+    `eval_raw`)."""
 
     def __init__(self, plan, mesh: Mesh, fit_reference: Optional[np.ndarray] = None,
                  fit_weights: Optional[np.ndarray] = None):
@@ -325,17 +314,15 @@ class ShardedChunkEvaluator:
         self.evaluators = [by_device[dev] for dev in mesh.devices]
 
     def eval_local(self, shards) -> List[torch.Tensor]:
-        """Each non-empty shard (on its device) featurized there."""
-        return [ev.eval_raw(part) for ev, part in zip(self.evaluators, shards)
-                if part.shape[0]]
+        """Each shard (on its device) featurized there; empty ones after
+        the first are left out (the first is empty only when all are)."""
+        return [ev.eval_raw(part) for i, (ev, part) in enumerate(zip(self.evaluators, shards))
+                if i == 0 or part.shape[0]]
 
     def eval_shards(self, shards) -> torch.Tensor:
         """Per-device frame shards -> the (C, F) features on the first
         device."""
-        outs = self.eval_local(shards)
-        if not outs:
-            return torch.zeros((0, self.plan.n_features), device=self.device)
-        return all_gather(outs, self.mesh.local())
+        return all_gather(self.eval_local(shards), self.mesh.local())
 
     def eval_raw(self, coords_chunk) -> torch.Tensor:
         """(C, A, 3) Angstrom frames -> (C, F) device tensor."""

@@ -90,9 +90,7 @@ def upload_coords(block: np.ndarray, mode: str = "int16",
         return torch.as_tensor(np.asarray(block, np.float32)).to(dev)
     if mode != "int16":
         raise ValueError(f"unknown upload mode {mode!r} (int16|float32)")
-    q, scale, offset = quantize_coords(block)
-    return dequantize_coords(torch.from_numpy(q).to(dev), torch.from_numpy(scale).to(dev),
-                             torch.from_numpy(offset).to(dev))
+    return upload_coords_sharded(block, Mesh((dev,)))[0]
 
 
 def upload_coords_sharded(block: np.ndarray, mesh: Mesh) -> List[torch.Tensor]:

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from deep_cartograph_torch.parallel.mesh import mesh_for
+from deep_cartograph_torch.parallel.mesh import Mesh, mesh_for
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -664,9 +664,10 @@ class Trainer:
         (`parallel.mesh.mesh_for`), T / n contiguous tries on each of its n
         devices, with no collective; else all on the trainer's device."""
         mesh = mesh_for(self.device)
-        if mesh is None or T % len(mesh):
-            return [_Lane(self.device, slice(0, T))]
-        logger.info("Sharding %d training tries over %d devices.", T, len(mesh))
+        if T % len(mesh):
+            mesh = Mesh((self.device,))
+        if len(mesh) > 1:
+            logger.info("Sharding %d training tries over %d devices.", T, len(mesh))
         per = T // len(mesh)
         return [_Lane(dev, slice(i * per, (i + 1) * per))
                 for i, dev in enumerate(mesh.devices)]

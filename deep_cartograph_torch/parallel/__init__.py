@@ -2,15 +2,11 @@
 data-parallel training step (the port of the JAX package's parallel/)."""
 
 from deep_cartograph_torch.parallel.mesh import (
-    FRAME_AXIS,
     Mesh,
-    frame_sharding,
     get_mesh,
     init_distributed,
     local_shard,
     mesh_for,
-    pad_to_multiple,
-    replicated,
     use_mesh,
 )
 from deep_cartograph_torch.parallel.sharding import (

@@ -6,13 +6,16 @@ the work spans several processes. As in the JAX package, one process
 sees every local device and the entry points shard over all of them
 without being configured: `get_mesh()` is every visible CUDA device.
 
-Routing (`mesh_for`): a call shards over the active mesh when it runs on
-the mesh's first device and the mesh has more than one entry. The
-default mesh holds only CUDA devices, so a call on the CPU never shards
-there. `use_mesh` sets the mesh for a block of code; a device may appear
-in it more than once, and a mesh of the CPU listed several times runs
-every shard, pad and combine on the host (the JAX tests' virtual devices,
-`--xla_force_host_platform_device_count`).
+Routing (`mesh_for`): every sharded path runs over a mesh, which is the
+active mesh when the call runs on its first device and it has more than
+one entry, else the call's device alone; a mesh of one is the
+one-device run, through the same code. The default mesh holds only CUDA
+devices, so a call on the CPU never shards there. `use_mesh` sets the
+mesh for a block of code; a device may appear in it more than once, and
+a mesh of the CPU listed several times runs every shard and combine on
+the host (the JAX tests' virtual devices,
+`--xla_force_host_platform_device_count`). `use_mesh(Mesh(["cuda:0"]))`
+keeps a host with several cards on the first one.
 
 Shards are contiguous slices from `torch.tensor_split`: they may be
 uneven, so nothing is padded and no weight masks padding.
@@ -23,17 +26,13 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import logging
-from typing import Callable, Iterator, List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
-
-FRAME_AXIS = "frames"
-
 
 def _mesh_device(device: DeviceLike) -> torch.device:
     """A CUDA device with its index, or the CPU; anything else raises."""
@@ -92,17 +91,15 @@ def _default_group():
     return dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
 
 
-def get_mesh(n_devices: Optional[int] = None) -> Mesh:
-    """The mesh set by `use_mesh`, else every visible CUDA device (the first
-    `n_devices` of them) with the process group of `init_distributed`, if
-    any. Raises without a card, as `resolve_device` does."""
+def get_mesh() -> Mesh:
+    """The mesh set by `use_mesh`, else every visible CUDA device with the
+    process group of `init_distributed`, if any. Raises without a card, as
+    `resolve_device` does."""
     mesh = _ACTIVE.get()
     if mesh is None:
         resolve_device(None)
         mesh = Mesh([torch.device("cuda", i) for i in range(torch.cuda.device_count())],
                     group=_default_group())
-    if n_devices is not None:
-        mesh = Mesh(mesh.devices[:n_devices], group=mesh.group)
     return mesh
 
 
@@ -115,32 +112,17 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
     return index(a) == index(b)
 
 
-def mesh_for(device: torch.device) -> Optional[Mesh]:
-    """The mesh a call on `device` (resolved) shards over, or None: the
-    active mesh when it has more than one entry and `device` is its first.
-    Without `use_mesh`, only a CUDA call can shard, over every visible
-    card."""
+def mesh_for(device: torch.device) -> Mesh:
+    """The mesh a call on `device` (resolved) runs over: the active mesh
+    when it has more than one entry and `device` is its first, else
+    `device` alone. Without `use_mesh`, only a CUDA call can shard, over
+    every visible card."""
     mesh = _ACTIVE.get()
-    if mesh is None:
-        if device.type != "cuda" or torch.cuda.device_count() < 2:
-            return None
+    if mesh is None and device.type == "cuda" and torch.cuda.device_count() > 1:
         mesh = get_mesh()
-    if len(mesh) > 1 and _same_device(device, mesh.devices[0]):
+    if mesh is not None and len(mesh) > 1 and _same_device(device, mesh.devices[0]):
         return mesh
-    return None
-
-
-def pad_to_multiple(array: np.ndarray, multiple: int, axis: int = 0
-                    ) -> Tuple[np.ndarray, int]:
-    """Edge-pad along `axis` to a multiple; returns (padded, original
-    length). Kept from the JAX package (which pads for static shapes); the
-    port's shards need no padding."""
-    n = array.shape[axis]
-    remainder = n % multiple
-    if remainder == 0:
-        return array, n
-    pad_block = np.take(array, [-1] * (multiple - remainder), axis=axis)
-    return np.concatenate([array, pad_block], axis=axis), n
+    return Mesh((device,))
 
 
 def shard(x, mesh: Mesh, axis: int = 0) -> List[torch.Tensor]:
@@ -150,17 +132,6 @@ def shard(x, mesh: Mesh, axis: int = 0) -> List[torch.Tensor]:
     t = torch.as_tensor(x)
     return [part.to(dev) for dev, part in
             zip(mesh.devices, torch.tensor_split(t, len(mesh), dim=axis))]
-
-
-def frame_sharding(mesh: Mesh, axis: int = 0) -> Callable[..., List[torch.Tensor]]:
-    """Placement of the frame axis (axis 0; 1 for the feature-sharded
-    callers) over the mesh: x -> one contiguous slice per device."""
-    return lambda x: shard(x, mesh, axis)
-
-
-def replicated(mesh: Mesh) -> Callable[..., List[torch.Tensor]]:
-    """Placement of one copy per device: x -> [x on each device]."""
-    return lambda x: [torch.as_tensor(x).to(dev) for dev in mesh.devices]
 
 
 def init_distributed(coordinator_address: Optional[str] = None,

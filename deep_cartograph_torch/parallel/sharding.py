@@ -16,7 +16,7 @@ work (`_to`), so a partial is never read before it is written.
 
 Frame-sharded moments (`sharded_covariances`,
 `sharded_feature_matrix_stats`) sum per-device partials; the KDE
-(`sharded_kde_logdensity`) runs kernel K2 on each shard and combines the
+(`sharded_kde_logsumexp`) runs kernel K2 on each shard and combines the
 local logsumexps as m + log sum exp(lse - m) with m their maximum; the
 feature-sharded rings (`feature_sharded_covariance_ring`,
 `feature_sharded_timelagged_ring`) keep one column block of the matrix
@@ -85,6 +85,8 @@ def all_gather(parts: Sequence[torch.Tensor], mesh: Mesh, dim: int = 0) -> torch
     device; across processes, in rank order (shards may differ in length
     along `dim`)."""
     dev = mesh.devices[0]
+    if len(parts) == 1 and mesh.group is None:
+        return _to(parts[0], dev)
     local = torch.cat([_to(p, dev) for p in parts], dim=dim)
     if mesh.group is None:
         return local
@@ -272,34 +274,39 @@ def feature_sharded_timelagged_ring(x_t, x_lag, mesh: Optional[Mesh] = None
 # ---------------------------------------------------------------------------
 
 
-def sharded_kde_logdensity(samples, grid_points, bandwidth: float,
-                           mesh: Optional[Mesh] = None) -> np.ndarray:
-    """log KDE density on a replicated grid with the samples frame-sharded:
-    each device computes the logsumexp of its shard through K2, and the
-    shards combine as lse(all) = m + log sum_i exp(lse_i - m), m = max_i
-    lse_i. Returns the log density (grid,) on the host, float32."""
+def sharded_kde_logsumexp(grid_points, samples, inv_two_bw2: float,
+                          mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """`ops.kde.kde_logsumexp` with the samples frame-sharded over the
+    mesh: each device computes the logsumexp of its shard through K2, on a
+    copy of the grid, and the shards combine as
+    lse(all) = m + log sum_i exp(lse_i - m), m = max_i lse_i (lse_0
+    itself on a mesh of one). Returns the raw (grid,) logsumexp, float32, on
+    the mesh's first device; the log density is it minus log(samples)."""
     mesh = mesh or get_mesh()
-    x = np.asarray(samples, np.float32)
-    if x.ndim == 1:
+    first = mesh.devices[0]
+    x = torch.as_tensor(samples, dtype=torch.float32)
+    if x.dim() == 1:
         x = x[:, None]
-    g = np.asarray(grid_points, np.float32).reshape(-1, x.shape[1])
-    inv_two_bw2 = 1.0 / (2.0 * bandwidth * bandwidth)
-    parts = [p for p in shard(x, mesh) if p.shape[0]]
+    g = torch.as_tensor(grid_points, dtype=torch.float32).reshape(-1, x.shape[1])
     grids = {}
     lses = []
-    for p in parts:
-        grid = grids.setdefault(p.device, torch.as_tensor(g).to(p.device))
-        lses.append(kde_logsumexp(grid, p, inv_two_bw2))
+    for p in shard(x, mesh):
+        if p.shape[0]:
+            grid = grids.setdefault(p.device, _to(g, p.device))
+            lses.append(kde_logsumexp(grid, p, inv_two_bw2))
+    if len(lses) == 1 and mesh.group is None:
+        return _to(lses[0], first)
     if not lses:  # this process holds no sample
-        lses = [torch.full((g.shape[0],), float("-inf"), device=mesh.devices[0])]
+        lses = [torch.full((g.shape[0],), float("-inf"), device=first)]
     m = pmax(lses, mesh)
+    # a grid point that no shard reaches keeps -inf, not nan
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     total = psum([torch.exp(lse - _to(m, lse.device)) for lse in lses], mesh)
-    n = psum([torch.tensor(float(x.shape[0]), device=mesh.devices[0])], mesh)
-    return (m + torch.log(total) - torch.log(n)).cpu().numpy()
+    return m + torch.log(total)
 
 
 __all__ = [
     "all_gather", "feature_sharded_covariance_ring", "feature_sharded_timelagged_ring",
     "lag_pairs_with_halo", "pmax", "pmin", "ppermute", "psum", "sharded_covariances",
-    "sharded_feature_matrix_stats", "sharded_kde_logdensity",
+    "sharded_feature_matrix_stats", "sharded_kde_logsumexp",
 ]

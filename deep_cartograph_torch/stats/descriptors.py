@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from deep_cartograph_torch.ops.build import load_host_library
-from deep_cartograph_torch.parallel.mesh import mesh_for, shard
+from deep_cartograph_torch.parallel.mesh import Mesh, mesh_for, shard
 from deep_cartograph_torch.utils import device as device_policy
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
@@ -80,27 +80,20 @@ def _minmax_all(features: torch.Tensor):
     return features.amin(0), features.amax(0)
 
 
-def _device_blocks(features: Matrix, device: torch.device):
-    """float32 feature blocks of at most BLOCK_ELEMENT_BUDGET elements,
-    each on `device`."""
-    n, f = features.shape
-    block = max(1, min(f, BLOCK_ELEMENT_BUDGET // max(n, 1)))
-    for start in range(0, f, block):
-        part = features[:, start : start + block]
-        yield torch.as_tensor(part).to(device=device, dtype=torch.float32)
-
-
-def _placed_blocks(features: Matrix, device: torch.device):
-    """float32 feature blocks as in `_device_blocks`; a large host matrix
-    with a mesh has each block's contiguous feature slices on the mesh's
-    devices (empty slices left out)."""
-    mesh = mesh_for(device)
+def _feature_mesh(features: Matrix, device: torch.device) -> Mesh:
+    """What entropy and std shard the features of a matrix over:
+    `mesh_for(device)` for a host matrix of at least `SMALL_WORK_ELEMENTS`
+    elements, else `device` alone."""
     on_host = not isinstance(features, torch.Tensor) or features.device.type == "cpu"
-    if (mesh is None or not on_host
-            or features.shape[0] * features.shape[1] < device_policy.SMALL_WORK_ELEMENTS):
-        for block in _device_blocks(features, device):
-            yield block
-        return
+    if on_host and features.shape[0] * features.shape[1] >= device_policy.SMALL_WORK_ELEMENTS:
+        return mesh_for(device)
+    return Mesh((device,))
+
+
+def _device_blocks(features: Matrix, mesh: Mesh):
+    """float32 feature blocks of at most BLOCK_ELEMENT_BUDGET elements,
+    each block's contiguous feature slices on the mesh's devices in order
+    (empty slices left out)."""
     n, f = features.shape
     width = max(1, min(f, BLOCK_ELEMENT_BUDGET // max(n, 1)))
     for start in range(0, f, width):
@@ -118,7 +111,7 @@ def shannon_entropy(
     dev = resolve_device(device)
     parts = [
         _entropy_all(block, num_bins).cpu().numpy()
-        for block in _placed_blocks(features, dev)
+        for block in _device_blocks(features, _feature_mesh(features, dev))
     ]
     return np.round(np.concatenate(parts), 3)
 
@@ -127,7 +120,8 @@ def standard_deviation(features: Matrix, device: DeviceLike = None) -> np.ndarra
     """Per-feature population std, rounded to 3 decimals like the
     reference."""
     dev = resolve_device(device)
-    parts = [_std_all(block).cpu().numpy() for block in _placed_blocks(features, dev)]
+    parts = [_std_all(block).cpu().numpy()
+             for block in _device_blocks(features, _feature_mesh(features, dev))]
     return np.round(np.concatenate(parts), 3)
 
 
@@ -138,7 +132,7 @@ def feature_statistics(
     and returned as float64 (the CV normalization's input)."""
     dev = resolve_device(device)
     parts: Dict[str, List[np.ndarray]] = {"mean": [], "std": [], "min": [], "max": []}
-    for block in _device_blocks(features, dev):
+    for block in _device_blocks(features, Mesh((dev,))):
         fmin, fmax = _minmax_all(block)
         for key, value in (("mean", block.mean(0)), ("std", _std_all(block)),
                            ("min", fmin), ("max", fmax)):

@@ -682,7 +682,7 @@ def test_k1_on_a_mesh_launches_once_a_shard_and_matches_one_device(cuda, tmp_pat
 
 def test_k2_on_a_mesh_launches_once_a_shard_and_matches_one_device(cuda):
     from deep_cartograph_torch.parallel.mesh import use_mesh
-    from deep_cartograph_torch.parallel.sharding import sharded_kde_logdensity
+    from deep_cartograph_torch.parallel.sharding import sharded_kde_logsumexp
 
     rng = np.random.default_rng(5)
     samples = rng.normal(0, 1, (20_003, 2)).astype(np.float32)
@@ -690,7 +690,7 @@ def test_k2_on_a_mesh_launches_once_a_shard_and_matches_one_device(cuda):
     mesh = _card_mesh()
     with use_mesh(mesh):
         before = torch_kde.STATS.launches
-        got = sharded_kde_logdensity(samples, grid, 0.1)
+        got = sharded_kde_logsumexp(grid, samples, 50.0).cpu().numpy() - np.log(len(samples))
         assert torch_kde.STATS.launches - before == len(mesh)
     one = torch_kde.kde_logsumexp(torch.as_tensor(grid, device="cuda"),
                                   torch.as_tensor(samples, device="cuda"), 50.0)

@@ -6,7 +6,8 @@ The children import no JAX; the parent compares what they write with the
 port in one process and with the JAX package's `make_dp_train_step` on its
 8-device virtual mesh, from the same parameters and batch. Tolerances:
 collectives and halo pairs exact; covariances and one training step 1e-5
-(float32 sums in another order).
+(float32 sums in another order); SGD's step against the full batch's
+gradient rel 1e-4.
 """
 
 import os
@@ -46,11 +47,14 @@ def _loss(params, batch):
     return torch.sum(err * w) / torch.clamp_min(torch.sum(w), 1e-9)
 
 
-def _dp_step(mesh, batch):
+OPTIMIZERS = ("SGD", "Adam")
+
+
+def _dp_step(mesh, batch, name):
     from deep_cartograph_torch.models.training import Optimizer
     from deep_cartograph_torch.parallel.training import make_dp_train_step
 
-    optimizer = Optimizer("Adam", {"lr": LR})
+    optimizer = Optimizer(name, {"lr": LR})
     params = {k: torch.as_tensor(v) for k, v in _params().items()}
     state = optimizer.init(params)
     step = make_dp_train_step(_loss, optimizer, mesh, LR)
@@ -93,7 +97,8 @@ def _child(rank, port, out_dir):
         out["c0"], out["ctau"] = c0.numpy(), ctau.numpy()
 
         batch = {k: v[rank * BATCH // 2: (rank + 1) * BATCH // 2] for k, v in _batch().items()}
-        out["dp_w"], out["dp_loss"] = _dp_step(mesh, batch)
+        for name in OPTIMIZERS:
+            out[f"dp_w_{name}"], out[f"dp_loss_{name}"] = _dp_step(mesh, batch, name)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
@@ -175,7 +180,18 @@ def test_sharded_covariances_over_four_shards_equal_one_process(ranks):
             np.testing.assert_allclose(got["ctau"], want.numpy(), atol=1e-5)
 
 
-def test_dp_train_step_equals_the_full_batch_step_and_jax(ranks):
+def _full_batch_gradient():
+    params = {k: torch.as_tensor(v).requires_grad_(True) for k, v in _params().items()}
+    loss = _loss(params, {k: torch.as_tensor(v) for k, v in _batch().items()})
+    return torch.autograd.grad(loss, [params["w"]])[0].numpy()
+
+
+@pytest.mark.parametrize("name", OPTIMIZERS)
+def test_dp_train_step_equals_the_full_batch_step_and_jax(ranks, name):
+    """One step of each optimizer. SGD's update is -LR times the summed
+    gradient, so it shows the gradient's size (Adam's first update is
+    about LR times its sign): held to the full batch's autograd gradient,
+    rel 1e-4."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -185,13 +201,19 @@ def test_dp_train_step_equals_the_full_batch_step_and_jax(ranks):
     from deep_cartograph_tpu.parallel.training import make_dp_train_step
 
     full = {k: torch.as_tensor(v) for k, v in _batch().items()}
-    want_w, want_loss = _dp_step(Mesh(("cpu",)), full)
+    w0 = _params()["w"]
+    want_w, want_loss = _dp_step(Mesh(("cpu",)), full, name)
     for got in ranks:
-        np.testing.assert_allclose(got["dp_w"], want_w, atol=1e-5)
-        np.testing.assert_allclose(float(got["dp_loss"]), want_loss, rtol=1e-5)
+        np.testing.assert_allclose(got[f"dp_w_{name}"], want_w, atol=1e-5)
+        np.testing.assert_allclose(float(got[f"dp_loss_{name}"]), want_loss, rtol=1e-5)
     # the port's step on its own 1-process mesh of four entries
-    four_w, _ = _dp_step(Mesh(("cpu",) * 4), full)
+    four_w, _ = _dp_step(Mesh(("cpu",) * 4), full, name)
     np.testing.assert_allclose(four_w, want_w, atol=1e-5)
+    if name == "SGD":
+        grad = _full_batch_gradient()
+        for w in [four_w, want_w] + [got["dp_w_SGD"] for got in ranks]:
+            np.testing.assert_allclose((w0 - w) / LR, grad, rtol=1e-4,
+                                       atol=1e-4 * np.abs(grad).max())
 
     def jax_loss(params, batch, rng):
         pred = batch["data"] @ params["w"]
@@ -199,7 +221,7 @@ def test_dp_train_step_equals_the_full_batch_step_and_jax(ranks):
         w = batch["weight"]
         return jnp.sum(err * w) / jnp.maximum(jnp.sum(w), 1e-9)
 
-    optimizer = optax.adam(LR)
+    optimizer = {"SGD": optax.sgd, "Adam": optax.adam}[name](LR)
     params = {k: jnp.asarray(v) for k, v in _params().items()}
     step = make_dp_train_step(jax_loss, optimizer, get_mesh())
     assert len(jax.devices()) == 8

@@ -170,7 +170,7 @@ def test_streamed_covariances_match_float64():
             yield x[s:s + rows]
 
     sh = htica_stream.StreamingHTICA(d, 2, 3, 2, lag_time=lag, device="cpu")
-    c0, ctau, _ = htica_stream._moments_to_covs(sh._pass(blocks, 2, d // 2))
+    c0, ctau, _ = htica_stream._moments_to_covs(sh._pass(blocks)[0])
     x64 = torch.as_tensor(x, dtype=torch.float64)
     pairs = [(seg[:-lag], seg[lag:]) for seg in (x64[: n // 2], x64[n // 2:])]
     x_t = torch.cat([p[0] for p in pairs]).reshape(-1, 2, d // 2).transpose(0, 1)

@@ -167,27 +167,40 @@ def test_sharded_kde_runs_k2_per_shard_and_matches_jax(mesh):
     samples = rng.standard_normal(203).astype(np.float32)  # uneven shards
     grid = np.linspace(-3, 3, 50).astype(np.float32)
     before = k2.STATS.plain_calls
-    got = port_sharding.sharded_kde_logdensity(samples, grid, 0.3)
+    lse = port_sharding.sharded_kde_logsumexp(grid, samples, 1.0 / (2 * 0.3 * 0.3))
     assert k2.STATS.plain_calls - before == N_DEV
     want = jax_sharding.sharded_kde_logdensity(samples, grid, 0.3)
-    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_allclose(lse.numpy() - np.log(len(samples)), want, atol=1e-5)
+    with use_mesh(Mesh(("cpu",))):  # one shard: K2's own logsumexp
+        one = port_sharding.sharded_kde_logsumexp(grid, samples, 1.0 / (2 * 0.3 * 0.3))
+    np.testing.assert_array_equal(one.numpy(), k2.kde_logsumexp(
+        torch.as_tensor(grid[:, None]), torch.as_tensor(samples[:, None]),
+        1.0 / (2 * 0.3 * 0.3)).numpy())
+    np.testing.assert_allclose(lse.numpy(), one.numpy(), atol=1e-5)
 
 
 @pytest.mark.parametrize("dim", [1, 2])
 def test_compute_fes_takes_the_sharded_branch_and_matches_jax(mesh, monkeypatch, dim):
     """With the threshold lowered, compute_fes shards every block's samples
-    over the mesh, as the JAX package's `_kde_fes_sharded` does."""
+    over the mesh, as the JAX package's `_kde_fes_sharded` does; on a mesh
+    of one the same streaming path runs K2 once a block."""
     rng = np.random.default_rng(5)
     data = np.concatenate([rng.normal(-1.0, 0.2, (700, dim)),
                            rng.normal(1.2, 0.3, (700, dim))]).astype(np.float32)
     taken = []
-    real = port_kde._kde_fes_sharded
+    real = port_kde.sharded_kde_logsumexp
     monkeypatch.setattr(port_kde, "STREAMING_THRESHOLD", 0)
-    monkeypatch.setattr(port_kde, "_kde_fes_sharded",
+    monkeypatch.setattr(port_kde, "sharded_kde_logsumexp",
                         lambda *a, **k: taken.append(a[-1]) or real(*a, **k))
     axes, fes, err = port_kde.compute_fes(data, bandwidth=0.1, num_bins=30, num_blocks=4,
                                           device="cpu")
-    assert taken == [mesh]
+    assert taken == [mesh] * 4
+    with use_mesh(Mesh(("cpu",))):
+        _, one, one_err = port_kde.compute_fes(data, bandwidth=0.1, num_bins=30,
+                                               num_blocks=4, device="cpu")
+    assert [len(m) for m in taken[4:]] == [1] * 4
+    np.testing.assert_allclose(fes, one, atol=1e-5)
+    np.testing.assert_allclose(err, one_err, atol=1e-5)
     if dim == 1:
         grid = axes[0][:, None]
     else:
@@ -231,7 +244,7 @@ def test_featurize_frames_sharded_matches_jax(mesh, ca_system):
 def test_featurizer_auto_shards_over_the_mesh(mesh, ca_system):
     """Under the mesh the Featurizer's chunks go through a
     ShardedChunkEvaluator (the JAX package's auto-shard), uneven chunks
-    included; outside it, through one PlanEvaluator."""
+    included; outside it, through one over the CPU alone."""
     top = Topology.from_pdb(ca_system.pdb_path)
     featurizer = Featurizer(top, LABELS, device="cpu")
     ev = featurizer.evaluator
@@ -252,7 +265,7 @@ def test_featurizer_auto_shards_over_the_mesh(mesh, ca_system):
     for feats in many:
         np.testing.assert_allclose(feats, got, atol=1e-6)
     with use_mesh(Mesh(("cpu",))):
-        assert isinstance(featurizer.evaluator, PlanEvaluator)
+        assert featurizer.evaluator.mesh.devices == (torch.device("cpu"),)
         np.testing.assert_allclose(
             featurizer.featurize_trajectory(ca_system.dcd_path, frame_chunk=16), got,
             atol=1e-6)
@@ -341,7 +354,7 @@ def test_frames_to_cv_sharded_matches_jax(mesh, trained, tmp_path, cv):
     with use_mesh(Mesh(("cpu",))):
         one = FramesToCV.from_model_zip(zip_path, system.pdb_path, str(tmp_path / "o"),
                                         device="cpu")
-        assert one.mesh is None
+        assert one.mesh.devices == (torch.device("cpu"),)
         np.testing.assert_allclose(got, one(coords), atol=1e-6)
 
 
@@ -376,10 +389,12 @@ def test_filter_stats_shard_the_feature_axis(mesh, monkeypatch):
 
 def test_filter_stats_keep_small_work_off_the_mesh(mesh, monkeypatch):
     placed = []
-    monkeypatch.setattr(port_desc, "shard", lambda *a, **k: placed.append(a) or [])
+    real = port_desc.shard
+    monkeypatch.setattr(port_desc, "shard",
+                        lambda *a, **k: placed.append(a[1]) or real(*a, **k))
     x = np.ones((100, 10), np.float32)
     port_desc.standard_deviation(x, device="cpu")
-    assert placed == []
+    assert [m.devices for m in placed] == [(torch.device("cpu"),)]
 
 
 def test_tica_sharded_matches_jax(mesh):
@@ -391,9 +406,9 @@ def test_tica_sharded_matches_jax(mesh):
     data = np.stack([slow, rng.standard_normal(n)], 1) @ np.array([[1.0, 0.5], [0.2, 1.0]])
     data = data.astype(np.float32)
     x_t, x_lag = data[:-5], data[5:]
-    from deep_cartograph_torch.cv.tica_math import tica, tica_sharded
+    from deep_cartograph_torch.cv.tica_math import tica
 
-    evals, evecs = tica_sharded(x_t, x_lag, 2)
+    evals, evecs = tica(x_t, x_lag, 2, device="cpu", mesh=mesh)
     want_evals, want_evecs = jax_tica_math.tica_sharded(x_t, x_lag, 2)
     np.testing.assert_allclose(evals, want_evals, atol=1e-4)
     np.testing.assert_allclose(evecs, want_evecs, atol=1e-4 * np.abs(want_evecs).max())
@@ -406,9 +421,9 @@ def test_tica_calculator_takes_the_sharded_branch(mesh, trained, tmp_path, monke
     from deep_cartograph_torch.cv import linear
 
     calls = []
-    real = linear.tica_sharded
-    monkeypatch.setattr(linear, "tica_sharded",
-                        lambda *a, **k: calls.append(a[3]) or real(*a, **k))
+    real = linear.tica
+    monkeypatch.setattr(linear, "tica",
+                        lambda *a, **k: calls.append(k["mesh"]) or real(*a, **k))
     calc = cv_calculators_map["tica"](configuration=cfg, output_path=str(tmp_path),
                                       device="cpu")
     calc.load_training_data([path], [system.pdb_path], features_list=_feature_labels())
@@ -622,24 +637,20 @@ def test_compute_features_over_the_mesh_writes_the_same_colvars(ca_system, tmp_p
 
 def test_mesh_routing_and_local_shard():
     cpu = torch.device("cpu")
-    assert port_mesh.mesh_for(cpu) is None  # the default mesh holds cards only
+    # the default mesh holds cards only: a CPU call runs on the CPU alone
+    assert port_mesh.mesh_for(cpu).devices == (cpu,)
     with use_mesh(Mesh(("cpu",) * 3)) as m:
         assert port_mesh.get_mesh() is m and port_mesh.mesh_for(cpu) is m
-        assert port_mesh.get_mesh(2).devices == (cpu, cpu)
         with use_mesh(Mesh(("cpu",))):
-            assert port_mesh.mesh_for(cpu) is None
+            assert port_mesh.mesh_for(cpu).devices == (cpu,)
         assert port_mesh.get_mesh() is m
     items = [f"traj_{i}.dcd" for i in range(7)]
     assert port_mesh.local_shard(items) == items
     parts = [port_mesh.local_shard(items, process_id=p, num_processes=3) for p in range(3)]
     assert parts == [items[0::3], items[1::3], items[2::3]]
-    padded, n = port_mesh.pad_to_multiple(np.arange(5.0), 4)
-    want, jn = jax_mesh.pad_to_multiple(np.arange(5.0), 4)
-    assert n == jn == 5 and np.array_equal(padded, want)
     with pytest.raises(ValueError, match="Unsupported mesh device"):
         Mesh(("meta",))
     with pytest.raises(ValueError, match="at least one device"):
         Mesh(())
-    placed = port_mesh.frame_sharding(Mesh(("cpu",) * 3), axis=1)(np.ones((2, 7)))
+    placed = port_mesh.shard(np.ones((2, 7)), Mesh(("cpu",) * 3), axis=1)
     assert [p.shape for p in placed] == [(2, 3), (2, 2), (2, 2)]
-    assert len(port_mesh.replicated(Mesh(("cpu",) * 3))(np.ones(4))) == 3

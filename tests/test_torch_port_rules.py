@@ -542,7 +542,7 @@ def test_parallel_entry_points_raise_without_cuda(no_cuda):
     from deep_cartograph_torch.parallel.sharding import (
         sharded_covariances,
         sharded_feature_matrix_stats,
-        sharded_kde_logdensity,
+        sharded_kde_logsumexp,
     )
 
     x = np.zeros((8, 2), np.float32)
@@ -552,12 +552,12 @@ def test_parallel_entry_points_raise_without_cuda(no_cuda):
         lambda: Mesh(("cuda",) * 2),
         lambda: sharded_covariances(x, x),
         lambda: sharded_feature_matrix_stats(x),
-        lambda: sharded_kde_logdensity(x[:, 0], x[:, 0], 0.1),
+        lambda: sharded_kde_logsumexp(x, x, 1.0),
         lambda: init_distributed("127.0.0.1:1", 2, 0),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
-    assert mesh_for(torch.device("cpu")) is None
+    assert mesh_for(torch.device("cpu")).devices == (torch.device("cpu"),)
     with use_mesh(Mesh(("cpu", "cpu"))) as mesh:
         assert get_mesh() is mesh and get_mesh().devices == (torch.device("cpu"),) * 2
         assert mesh_for(torch.device("cpu")) is mesh
