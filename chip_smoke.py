@@ -67,7 +67,8 @@ Phases, each failing the run (non-zero exit) if it fails:
    TorchScript `*_weights.pt` run on the card, each linear input's COMBINE
    chain evaluated on the feature matrix, both against the projection; the
    AE on the card against the CPU on 5,000 frames for 2 epochs, with
-   leaky_relu and again with tanh.
+   leaky_relu (its projection held to the card's own one-ulp spread over
+   6 seeds of input noise) and again with tanh.
 7. Trajectory inputs and clustering (traj_cluster) on the main path's data,
    the kernels' counters zeroed before and read after
    (`inputs_and_clustering`): the 100,000 frames written as XTC by the
@@ -96,7 +97,9 @@ Phases, each failing the run (non-zero exit) if it fails:
    steps), its first 1,000 steps held to float64 numpy with the same noise;
    the UMAP CV at 100,000 x 586 (the schema's defaults, mean_std, 300
    epochs): the fit's parts, transform, save, load and project_colvars of
-   phase 4's file timed, the kNN of 1,000 rows held to float64 numpy,
+   phase 4's file timed, the kNN of 1,000 rows held to float64 numpy
+   within the float32 error bound of its d2 expansion (at 100,000 rows and
+   again on the first 50,000),
    sigma to its equation, one layout epoch card against CPU, a fit on
    5,000 rows card against CPU beside its one-ulp spread, and
    FramesToCV.from_model_zip refusing the zip.
@@ -146,8 +149,12 @@ Phases, each failing the run (non-zero exit) if it fails:
    mesh (2 epochs); the 2-D FES with each block's samples over the mesh
    (K2 on each shard); one Adam and one SGD data-parallel step over an
    NCCL group of one process (SGD's held to the full batch's gradient).
-   Each step runs once on a mesh of the first card alone and twice on the
-   mesh, timed.
+   Each step runs warm once on a mesh of the first card alone and once on
+   the mesh, then is timed once each way: on one device, on the mesh
+   (`use_mesh`) and by its default route (no mesh set:
+   `parallel.mesh.mesh_for`'s per-path default, on one card the one-device
+   run); each route's result is held to the one-device one. One line a
+   step gives the three times and their ratios to one device.
 
 Prints the nvidia-smi line, the [smoke] lines (times beside the card's name
 and power limit), then one JSON line {"kernels": [...]} (each kernel's
@@ -236,7 +243,8 @@ PROJECTION_TOL = 1e-4           # the repo's projection contract
 # the projection after two Adam steps by 3e-3 to 8e-3 on the CPU (2e-2 on
 # 20,000 frames), against 5e-6 with tanh in its place (`ae_float32_floor.py`);
 # the optimizer does not cause it (SGD: 7e-5 to 5e-4 against 4e-6). So the
-# leaky_relu AE's card-against-CPU gap is recorded beside that floor, with
+# leaky_relu AE's card-against-CPU gap is held to the card's own one-ulp
+# spread, measured over several seeds of input noise in the same run, with
 # its losses held (`ae_card_cpu_leaky_relu_*`), and the AE's projection is
 # held to the contract on the same cut with tanh (`ae_card_cpu_tanh_*`).
 CARD_CPU_LOSS_RTOL = 1e-4
@@ -255,6 +263,9 @@ CARD_CPU_LOSS_RTOL = 1e-4
 # ~1e-6, so the contract holds it.
 EIGVAL_TOL = 1e-4
 ULP_SPREAD_MULTIPLE = 3
+# The leaky_relu AE, card against CPU: seeds of one-ulp input noise whose
+# spreads on the card give the distribution that the gap is held to.
+AE_NOISE_SEEDS = 6
 # The streaming moments sum in float64: their C0 is float32's rounding of
 # the float64 one (~6e-8 relative), held here with a margin.
 STREAMED_C0_RTOL = 1e-6
@@ -320,6 +331,7 @@ HBOND_EDGE_RTOL = 1e-5
 MB_CHECK_STEPS = 1_000     # Langevin steps held to float64 numpy with the same noise
 MB_TOL = 1e-4
 UMAP_KNN_SAMPLE = 1_000    # kNN rows held to float64 numpy
+UMAP_KNN_CUT = 50_000      # the kNN again on these first rows (other query tiles)
 SIGMA_RTOL = 1e-3          # sum exp(-(d - rho)/sigma) against log2(k)
 # One layout epoch, card against CPU: the card's index_add_ sums the updates
 # of a row (up to ~900 at 100,000 frames) in no fixed order, an epoch at the
@@ -987,13 +999,19 @@ def card_against_cpu(cv: str, config: dict, calc_main, frames: int,
     CUT_TRIES tries, CUT_EPOCHS epochs) on the card and on the CPU: the
     per-epoch losses within rel CARD_CPU_LOSS_RTOL, the projections within
     PROJECTION_TOL. Without `hold_projection` (the leaky_relu AE) the
-    projections' gap is recorded, not held, beside the spread that one
-    float32 ulp of input noise gives on the CPU (`ulp_noise_spread_cpu`)."""
+    projections' gap is held to the card's own one-ulp spread instead: the
+    same training on the card from AE_NOISE_SEEDS inputs one float32 ulp
+    away (seeded noise), each against the card's run without noise
+    (`ulp_noise_spread_card`); the gap within ULP_SPREAD_MULTIPLE times
+    the largest (`conditioning_tol`). The CPU's spread for one seed is
+    recorded beside it (`ulp_noise_spread_cpu`)."""
     x = calc_main.training_data[:frames]
     runs = {}
     cases = [("cuda", "cuda", x), ("cpu", "cpu", x)]
     if not hold_projection:
         cases.append(("noisy", "cpu", with_ulp_noise(x)))
+        cases += [(f"noisy_card_{seed}", "cuda", with_ulp_noise(x, seed))
+                  for seed in range(AE_NOISE_SEEDS)]
     for name, device, data in cases:
         calc = calculator(cv, config, data, calc_main.features_ref_labels, device,
                           num_tries=CUT_TRIES, max_epochs=CUT_EPOCHS)
@@ -1016,6 +1034,15 @@ def card_against_cpu(cv: str, config: dict, calc_main, frames: int,
     if not hold_projection:
         result["ulp_noise_spread_cpu"] = float(np.abs(runs["noisy"][0].project_data(x)
                                                       - on_cpu).max())
+        on_card = card.project_data(x)
+        spreads = [float(np.abs(runs[f"noisy_card_{seed}"][0].project_data(x) - on_card).max())
+                   for seed in range(AE_NOISE_SEEDS)]
+        result["ulp_noise_spread_card"] = spreads
+        result["gap_rank_among_card_spreads"] = int(sum(sp < proj for sp in spreads))
+        tol = conditioning_tol(max(spreads))
+        check(proj <= tol,
+              f"{cv} projection on the card within {tol:.3g} of the CPU ({proj}; the card's "
+              f"one-ulp spreads over {AE_NOISE_SEEDS} seeds {[f'{sp:.3g}' for sp in spreads]})")
     else:
         check(proj <= PROJECTION_TOL,
               f"{cv} projection on the card matches the CPU (max diff {proj})")
@@ -1027,13 +1054,13 @@ def align_signs(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return a * np.sign(np.sum(a * b, axis=0))
 
 
-def with_ulp_noise(x):
+def with_ulp_noise(x, seed: int = SEED):
     """x with one float32 ulp of seeded relative noise: the spread a CV
     shows between the two is its float32 conditioning floor."""
     import torch
 
     x = torch.as_tensor(x)
-    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(SEED))
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(seed))
     return x * (1 + 6e-8 * noise.to(x.device))
 
 
@@ -1470,8 +1497,8 @@ def autoencoders(calc_deep, linear: dict, ctx: dict, tmp: str, stats, card: str,
        for the AE with the RMSD restraint on two waypoints (the first and
        last frames);
     5. the AE on the card against the CPU on CARD_CPU_FRAMES frames: with
-       leaky_relu (the losses held) and with tanh (the losses and the
-       projection held).
+       leaky_relu (the losses held, the projection within the card's own
+       one-ulp spread) and with tanh (the losses and the projection held).
     """
     import copy
     import zipfile
@@ -1601,7 +1628,10 @@ def autoencoders(calc_deep, linear: dict, ctx: dict, tmp: str, stats, card: str,
         compare = card_against_cpu("ae", config, calcs["ae"], CARD_CPU_FRAMES,
                                    hold_projection=name == "tanh")
         out.update({f"ae_card_cpu_{name}_{k}": v for k, v in compare.items()})
-        floor = (f" (not held: one-ulp input noise on the CPU moves it "
+        floor = (f" (held to {ULP_SPREAD_MULTIPLE} x the card's largest one-ulp spread; "
+                 f"spreads over {AE_NOISE_SEEDS} seeds "
+                 f"{', '.join(f'{sp:.3g}' for sp in compare['ulp_noise_spread_card'])}, the "
+                 f"gap above {compare['gap_rank_among_card_spreads']} of them; the CPU's "
                  f"{compare['ulp_noise_spread_cpu']:.3g})" if name == "leaky_relu" else "")
         log(f"[{card}] AE cut-down training, {name} ({CARD_CPU_FRAMES} frames, "
             f"{CUT_TRIES} tries, {CUT_EPOCHS} epochs): card {compare['card_s']:.3f} s, "
@@ -2140,6 +2170,56 @@ def numpy_draws(n: int):
     return draws
 
 
+def knn_against_numpy(idx, x64: np.ndarray, k: int, key: str, out: dict) -> int:
+    """The kNN indices (n, k) of `x64`'s rows among themselves, held on
+    UMAP_KNN_SAMPLE rows to float64 numpy: each reported neighbour's d2
+    beyond the float64 one of its rank, in float32 ulps of |q|^2 + |x|^2
+    (`{key}_max_excess_ulps`), within the float32 bound of the d2
+    expansion (`knn_bound_ulps`; `{key}_max_excess_of_bound`). Returns the
+    rows that are exactly numpy's."""
+    n = len(x64)
+    rows = np.random.default_rng(SEED).choice(n, UMAP_KNN_SAMPLE, replace=False)
+    sq = (x64 ** 2).sum(1)
+    got_idx = idx[rows].cpu().numpy()
+    excess, of_bound, exact = [], [], 0
+    for start in range(0, UMAP_KNN_SAMPLE, 100):
+        r, got = rows[start:start + 100], got_idx[start:start + 100]
+        d2 = sq[r, None] - 2 * x64[r] @ x64.T + sq[None, :]
+        d2[np.arange(len(r)), r] = np.inf
+        best = np.sort(d2, axis=1)[:, :k]
+        mine = np.take_along_axis(d2, got, 1)
+        exact += int((np.sort(np.argsort(d2, 1, kind="stable")[:, :k], 1)
+                      == np.sort(got, 1)).all(1).sum())
+        ulps = (mine - best) / (np.finfo(np.float32).eps * (sq[r, None] + sq[got]))
+        excess.append(ulps)
+        of_bound.append(ulps / knn_bound_ulps(sq[r], sq[got], sq.max(), x64.shape[1]))
+    excess, of_bound = np.concatenate(excess), np.concatenate(of_bound)
+    out[f"{key}_rows"] = n
+    out[f"{key}_exact_rows"] = exact
+    out[f"{key}_max_excess_ulps"] = float(excess.max())
+    out[f"{key}_max_excess_of_bound"] = float(of_bound.max())
+    check(bool((of_bound <= 1).all()),
+          f"kNN of {UMAP_KNN_SAMPLE} of {n} rows: numpy's, or within the float32 bound of "
+          f"the d2 expansion ({out[f'{key}_max_excess_ulps']:.3g} ulps, "
+          f"{out[f'{key}_max_excess_of_bound']:.3g} of the bound)")
+    return exact
+
+
+def knn_bound_ulps(sq_q: np.ndarray, sq_got: np.ndarray, sq_max: float, d: int) -> np.ndarray:
+    """The most that a float32 kNN by the d2 expansion may report beyond
+    the exact neighbour of each rank, in the ulps of `knn_against_numpy`
+    (eps32 (|q|^2 + |x|^2) of the reported neighbour x), per query row and
+    rank. The expansion fl(fl(|q|^2 - 2 q.x) + |x|^2) of d-term sums errs
+    by at most (2 d + 5) u S, S = |q|^2 + |x|^2, u = eps32 / 2: gamma_d S
+    for the two norms, gamma_d 2 sum |q_i x_i| <= gamma_d S for the
+    product (|q_i x_i| <= (q_i^2 + x_i^2) / 2), 4 u S for the two roundings
+    of terms of size <= 2 S. The k-th smallest of values each within E of
+    exact is within E of the exact k-th, so a reported neighbour's exact d2
+    exceeds the exact one of its rank by at most 2 E, E taken at the
+    largest |x|^2: 2 (2 d + 5) u (|q|^2 + max |x|^2)."""
+    return (2 * d + 5) * (sq_q[:, None] + sq_max) / (sq_q[:, None] + sq_got)
+
+
 def umap_cv(ctx: dict, tmp: str, card: str, device="cuda") -> dict:
     """Phase 8 (d): the UMAP CV at the main path's width through
     cv_calculators_map["umap"] (the schema's defaults, the main path's
@@ -2195,30 +2275,16 @@ def umap_cv(ctx: dict, tmp: str, card: str, device="cuda") -> dict:
     except TypeError:
         pass
 
-    # the kNN on UMAP_KNN_SAMPLE rows against float64 numpy
+    # the kNN on UMAP_KNN_SAMPLE rows against float64 numpy, at n rows and
+    # again on the first UMAP_KNN_CUT rows (other query tiles)
     x = calc._normalized(kept_features)
     k = calc.cv.n_neighbors
     (dists, idx), out["umap_knn_again_s"] = synced(lambda: _knn(x, x, k, True), device)
-    rows = np.random.default_rng(SEED).choice(n, UMAP_KNN_SAMPLE, replace=False)
     x64 = calc.cv.training_data.astype(np.float64)
-    sq = (x64 ** 2).sum(1)
-    got_idx = idx[rows].cpu().numpy()
-    excess, exact = [], 0
-    for start in range(0, UMAP_KNN_SAMPLE, 100):
-        r = rows[start:start + 100]
-        d2 = sq[r, None] - 2 * x64[r] @ x64.T + sq[None, :]
-        d2[np.arange(len(r)), r] = np.inf
-        best = np.sort(d2, axis=1)[:, :k]
-        mine = np.take_along_axis(d2, got_idx[start:start + 100], 1)
-        exact += int((np.sort(np.argsort(d2, 1, kind="stable")[:, :k], 1)
-                      == np.sort(got_idx[start:start + 100], 1)).all(1).sum())
-        scale = np.finfo(np.float32).eps * (sq[r, None] + sq[got_idx[start:start + 100]])
-        excess.append((mine - best) / scale)
-    excess = np.concatenate(excess)
-    out["umap_knn_exact_rows"] = exact
-    out["umap_knn_max_excess_ulps"] = float(excess.max())
-    check(bool((excess <= NN_ULPS).all()),
-          f"kNN of {UMAP_KNN_SAMPLE} rows: numpy's, or within {NN_ULPS} float32 ulps")
+    exact = knn_against_numpy(idx, x64, k, "umap_knn", out)
+    cut = UMAP_KNN_CUT
+    _, cut_idx = _knn(x[:cut], x[:cut], k, True)
+    knn_against_numpy(cut_idx, x64[:cut], k, f"umap_knn_{cut}", out)
     (rho, sigma), out["umap_sigma_again_s"] = synced(lambda: _smooth_knn(dists), device)
     d64, rho64, sigma64 = (v.double().cpu().numpy() for v in (dists, rho, sigma))
     total = np.exp(-np.maximum(d64 - rho64[:, None], 0.0) / sigma64[:, None]).sum(1)
@@ -2268,7 +2334,11 @@ def umap_cv(ctx: dict, tmp: str, card: str, device="cuda") -> dict:
         f"project_colvars ({COLVARS_FRAMES} frames) {out['umap_project_colvars_s']:.2f} s; "
         f"from_model_zip refused")
     log(f"[{card}] UMAP checks: kNN of {UMAP_KNN_SAMPLE} rows, {exact} exactly numpy's, the "
-        f"rest within {out['umap_knn_max_excess_ulps']:.2f} ulps; sigma within rel "
+        f"rest within {out['umap_knn_max_excess_ulps']:.2f} ulps "
+        f"({out['umap_knn_max_excess_of_bound']:.3g} of the float32 bound; on the first "
+        f"{UMAP_KNN_CUT} rows {out[f'umap_knn_{UMAP_KNN_CUT}_exact_rows']} exact, "
+        f"{out[f'umap_knn_{UMAP_KNN_CUT}_max_excess_ulps']:.2f} ulps, "
+        f"{out[f'umap_knn_{UMAP_KNN_CUT}_max_excess_of_bound']:.3g} of the bound); sigma within rel "
         f"{out['umap_sigma_max_rel_err']:.3g}; one layout epoch (points moved up to "
         f"{out['umap_epoch_moved']:.3g}) card vs CPU {out['umap_epoch_err']:.3g}, card vs "
         f"card over {LAYOUT_REPEATS} runs and one with one-ulp noise "
@@ -2949,9 +3019,10 @@ def align_columns(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 def multi_gpu(calc, ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
               device="cuda") -> dict:
     """Phase 11: every sharded path at the main path's width, on the mesh of
-    every visible card (else cuda:0 listed four times), each step timed
-    beside its one-device counterpart (a mesh of cuda:0 alone) and held to
-    it and to phase 3 (the kernels' counts zeroed before and read after):
+    every visible card (else cuda:0 listed four times), each step warmed,
+    then timed on one device (a mesh of cuda:0 alone), on the mesh and by
+    its default route, each held to the one-device run and to phase 3 (the
+    kernels' counts zeroed before and read after):
     the Featurizer's auto-shard on the DCD and its int16 upload (K1 a
     shard), FramesToCV, entropy and std, TICA, the streaming HTICA, the
     try-sharded deep-TICA, the 2-D FES (K2 a shard), and one data-parallel
@@ -2969,13 +3040,22 @@ def multi_gpu(calc, ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
     from deep_cartograph_torch.geom.kernels import PlanEvaluator
     from deep_cartograph_torch.io.topology import Topology
     from deep_cartograph_torch.models.training import Optimizer
-    from deep_cartograph_torch.parallel import Mesh, init_distributed, use_mesh
+    from deep_cartograph_torch.parallel import Mesh, init_distributed, mesh_for, use_mesh
     from deep_cartograph_torch.parallel.training import make_dp_train_step
     from deep_cartograph_torch.stats.descriptors import shannon_entropy, standard_deviation
 
     t_phase = time.perf_counter()
     one = Mesh(["cuda:0" if device == "cuda" else "cpu"])
     mesh, mesh10 = smoke_mesh(device=device), smoke_mesh(10, device)
+    first_device = one.devices[0]
+
+    def default_devices(divides=0):
+        """The devices a call on the first device runs over with no mesh
+        set: `mesh_for`'s, or the device alone where the mesh does not
+        divide `divides` (the 10 subspaces and tries)."""
+        n = len(mesh_for(first_device))
+        return 1 if divides and divides % n else n
+
     k1, k2 = stats[0], stats[1]
     labels = make_labels(N_ATOMS)
     top = Topology.from_pdb(ctx["pdb_path"])
@@ -2988,16 +3068,27 @@ def multi_gpu(calc, ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
         """A kernel's launches (on the CPU: calls of its plain version)."""
         return st.launches if device == "cuda" else st.plain_calls
 
-    def both(name, fn, on=None):
-        """fn() on one device, then twice on the mesh (the first sharded
-        call of a step may pay the first use of another card): (one-device,
-        sharded) results."""
+    def routes(name, fn, on=None, divides=0):
+        """fn() warm, once on one device and once on the mesh (the first
+        call of each may pay a card's first use), then timed once each
+        way: on one device (a mesh of cuda:0 alone), on the mesh
+        (`use_mesh`), and by the default route (no `use_mesh`): the
+        (one-device, mesh, default-route) results. Records the default
+        route's device count (`mesh_for(device)`, the device alone where
+        it does not divide `divides`)."""
+        on = on or mesh
         with use_mesh(one):
-            first, out[f"{name}_one_s"] = synced(fn, device)
-        with use_mesh(on or mesh):
+            _, out[f"{name}_one_first_s"] = synced(fn, device)
+        with use_mesh(on):
             _, out[f"{name}_sharded_first_s"] = synced(fn, device)
-            second, out[f"{name}_sharded_s"] = synced(fn, device)
-        return first, second
+        with use_mesh(one):
+            single, out[f"{name}_one_s"] = synced(fn, device)
+        with use_mesh(on):
+            sharded, out[f"{name}_sharded_s"] = synced(fn, device)
+        default, out[f"{name}_default_s"] = synced(fn, device)
+        out[f"{name}_sharded_devices"] = len(on)
+        out[f"{name}_default_devices"] = default_devices(divides)
+        return single, sharded, default
 
     # 1. The Featurizer's auto-shard on the DCD, float32 and int16 uploads.
     featurizer = Featurizer(top, labels, device=device)
@@ -3006,16 +3097,20 @@ def multi_gpu(calc, ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
         check(featurizer.evaluator.mesh is mesh, "the Featurizer shards over the mesh")
     for upload in ("float32", "int16"):
         before = count(k1)
-        single, sharded = both(f"featurize_{upload}", lambda: featurizer.featurize_trajectory(
-            ctx["dcd_path"], frame_chunk=CHUNK, upload=upload))
+        single, sharded, default = routes(
+            f"featurize_{upload}", lambda: featurizer.featurize_trajectory(
+                ctx["dcd_path"], frame_chunk=CHUNK, upload=upload))
         out[f"featurize_{upload}_k1_launches"] = count(k1) - before
-        check(out[f"featurize_{upload}_k1_launches"] == chunks * (1 + 2 * len(mesh)),
-              f"K1 once a chunk on one device and once a shard of each chunk, twice ({upload})")
-        out[f"featurize_{upload}_err_vs_one"] = float(np.abs(sharded - single).max())
-        out[f"featurize_{upload}_bit_equal"] = bool(np.array_equal(sharded, single))
-        check(out[f"featurize_{upload}_err_vs_one"] <= 1e-6,
-              f"sharded {upload} features equal the one-device ones "
-              f"({out[f'featurize_{upload}_err_vs_one']})")
+        check(out[f"featurize_{upload}_k1_launches"]
+              == chunks * (2 + 2 * len(mesh) + out[f"featurize_{upload}_default_devices"]),
+              f"K1 once a chunk on one device and once a shard of each chunk, by each "
+              f"route ({upload})")
+        for route, got in (("", sharded), ("_default", default)):
+            out[f"featurize_{upload}{route}_err_vs_one"] = float(np.abs(got - single).max())
+            out[f"featurize_{upload}{route}_bit_equal"] = bool(np.array_equal(got, single))
+            check(out[f"featurize_{upload}{route}_err_vs_one"] <= 1e-6,
+                  f"{route[1:] or 'sharded'} {upload} features equal the one-device ones "
+                  f"({out[f'featurize_{upload}{route}_err_vs_one']})")
         if upload == "float32":
             out["featurize_err_vs_phase3"] = float(np.abs(sharded - ctx["features"]).max())
             check(out["featurize_err_vs_phase3"] <= 1e-6,
@@ -3026,28 +3121,34 @@ def multi_gpu(calc, ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
             out.update({f"int16_{k}": v for k, v in excess.items()})
             check(all(excess[f"{k}_excess"] <= 0 for k in ("dist", "sin", "cos")),
                   "sharded int16 features within phase 10's bound")
-        del single, sharded
+        del single, sharded, default
 
     # 2. Serving: FramesToCV over the 100,000 frames.
     before = count(k1)
-    single, sharded = both("frames_to_cv", lambda: FramesToCV(
+    single, sharded, default = routes("frames_to_cv", lambda: FramesToCV(
         calc.projection(), top, ctx["kept"], device=device)(ctx["frames"]))
     out["frames_to_cv_k1_launches"] = count(k1) - before
     out["frames_to_cv_err_vs_phase3"] = float(np.abs(sharded - ctx["cv"]).max())
     out["frames_to_cv_err_vs_one"] = float(np.abs(sharded - single).max())
-    check(out["frames_to_cv_k1_launches"] == 1 + 2 * len(mesh)
-          and max(out["frames_to_cv_err_vs_phase3"], out["frames_to_cv_err_vs_one"]) <= 1e-5,
-          f"sharded FramesToCV within 1e-5 of phase 3 and one device "
-          f"({out['frames_to_cv_err_vs_phase3']}, {out['frames_to_cv_err_vs_one']})")
+    out["frames_to_cv_default_err_vs_one"] = float(np.abs(default - single).max())
+    check(out["frames_to_cv_k1_launches"]
+          == 2 + 2 * len(mesh) + out["frames_to_cv_default_devices"]
+          and max(out["frames_to_cv_err_vs_phase3"], out["frames_to_cv_err_vs_one"],
+                  out["frames_to_cv_default_err_vs_one"]) <= 1e-5,
+          f"sharded and default-route FramesToCV within 1e-5 of phase 3 and one device "
+          f"({out['frames_to_cv_err_vs_phase3']}, {out['frames_to_cv_err_vs_one']}, "
+          f"{out['frames_to_cv_default_err_vs_one']})")
 
     # 3. Entropy and std, feature-sharded, of the host feature matrix.
-    (ent1, std1), (ent, std) = both("entropy_std", lambda: (
+    (ent1, std1), (ent, std), (ent_d, std_d) = routes("entropy_std", lambda: (
         shannon_entropy(ctx["features"], device=device),
         standard_deviation(ctx["features"], device=device)))
-    out["entropy_std_equal"] = bool(np.array_equal(ent, ent1) and np.array_equal(std, std1)
-                                    and np.array_equal(ent, ctx["entropy"])
-                                    and np.array_equal(std, ctx["std"]))
-    check(out["entropy_std_equal"], "feature-sharded entropy and std equal phase 3's")
+    out["entropy_std_equal"] = bool(all(
+        np.array_equal(a, b) for a, b in ((ent, ent1), (std, std1), (ent_d, ent1),
+                                          (std_d, std1), (ent, ctx["entropy"]),
+                                          (std, ctx["std"]))))
+    check(out["entropy_std_equal"],
+          "feature-sharded and default-route entropy and std equal phase 3's")
 
     # 4. TICA through the calculator, its covariances frame-sharded at
     # 100,000 x 586. C0's condition number is near 2e7, so the weights are
@@ -3064,16 +3165,18 @@ def multi_gpu(calc, ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
         t.normalize_cv()
         return t.project_data(t.training_data, normalize_data=False)
 
-    tica_one, tica_mesh = both("tica", tica_calc)
+    tica_one, tica_mesh, tica_default = routes("tica", tica_calc)
     with use_mesh(one):
         noisy = tica_calc(with_ulp_noise(ctx["kept_features"]))
     jitter, ref = tica_projection(noisy), tica_projection(tica_one)
-    out["tica_eigenvalue_err"] = float(np.abs(np.asarray(tica_mesh.eigenvalues_)
-                                              - tica_one.eigenvalues_).max())
-    out["tica_weights_err"] = float(np.abs(align_columns(tica_mesh.cv, tica_one.cv)
-                                           - tica_one.cv).max() / np.abs(tica_one.cv).max())
-    out["tica_projection_err"] = float(np.abs(align_columns(tica_projection(tica_mesh), ref)
-                                              - ref).max())
+    for route, got in (("", tica_mesh), ("_default", tica_default)):
+        out[f"tica{route}_eigenvalue_err"] = float(np.abs(np.asarray(got.eigenvalues_)
+                                                          - tica_one.eigenvalues_).max())
+        out[f"tica{route}_weights_err"] = float(
+            np.abs(align_columns(got.cv, tica_one.cv) - tica_one.cv).max()
+            / np.abs(tica_one.cv).max())
+        out[f"tica{route}_projection_err"] = float(
+            np.abs(align_columns(tica_projection(got), ref) - ref).max())
     out["tica_ulp_noise_spread"] = float(np.abs(align_columns(jitter, ref) - ref).max())
     out["tica_weights_ulp_noise_spread"] = float(np.abs(
         align_columns(noisy.cv, tica_one.cv) - tica_one.cv).max() / np.abs(tica_one.cv).max())
@@ -3081,12 +3184,15 @@ def multi_gpu(calc, ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
     _, out["tica_sharded_fn_s"] = synced(
         lambda: tica(x[:-10], x[10:], 2, device=device, mesh=mesh), device)
     tol = conditioning_tol(out["tica_ulp_noise_spread"])
-    check(out["tica_eigenvalue_err"] <= EIGVAL_TOL and out["tica_projection_err"] <= tol,
-          f"sharded TICA eigenvalues within {EIGVAL_TOL} ({out['tica_eigenvalue_err']}), "
-          f"projection within {tol:.3g} of one device ({out['tica_projection_err']}; "
-          f"weights {out['tica_weights_err']:.3g} of the largest, one-ulp input noise "
-          f"{out['tica_weights_ulp_noise_spread']:.3g})")
-    del tica_one, tica_mesh, noisy, jitter, ref
+    for route in ("", "_default"):
+        check(out[f"tica{route}_eigenvalue_err"] <= EIGVAL_TOL
+              and out[f"tica{route}_projection_err"] <= tol,
+              f"{route[1:] or 'sharded'} TICA eigenvalues within {EIGVAL_TOL} "
+              f"({out[f'tica{route}_eigenvalue_err']}), projection within {tol:.3g} of one "
+              f"device ({out[f'tica{route}_projection_err']}; weights "
+              f"{out[f'tica{route}_weights_err']:.3g} of the largest, one-ulp input noise "
+              f"{out['tica_weights_ulp_noise_spread']:.3g})")
+    del tica_one, tica_mesh, tica_default, noisy, jitter, ref
 
     # 5. The streaming HTICA at phase 4's shape, the subspaces over the mesh.
     names = ctx["kept"][:HTICA_STREAM_FEATURES]
@@ -3098,7 +3204,12 @@ def multi_gpu(calc, ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
     normalized = (whole - whole.mean(0)) / whole.std(0)
     del whole, frames
 
-    def htica(est_mesh):
+    def htica():
+        # the calculator's routing (cv/linear.py): the mesh where it
+        # divides the subspaces, else the device alone
+        est_mesh = mesh_for(first_device)
+        if LINEAR_CONFIG["num_subspaces"] % len(est_mesh):
+            est_mesh = Mesh((first_device,))
         est = StreamingHTICA(len(names), LINEAR_CONFIG["num_subspaces"],
                              LINEAR_CONFIG["subspaces_dimension"], 2,
                              LINEAR_CONFIG["lag_time"], device=device, mesh=est_mesh)
@@ -3106,15 +3217,20 @@ def multi_gpu(calc, ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
                          for s in range(0, COLVARS_FRAMES, HTICA_BLOCK)))
         return est
 
-    est_one, out["htica_one_s"] = synced(lambda: htica(None), device)
-    est_mesh, out["htica_sharded_s"] = synced(lambda: htica(mesh10), device)
+    est_one, est_mesh, est_default = routes("htica", htica, mesh10,
+                                            LINEAR_CONFIG["num_subspaces"])
     host = normalized.double().cpu().numpy()
-    ref, got = host @ est_one.weights, host @ est_mesh.weights
-    out["htica_eigenvalue_err"] = float(np.abs(est_mesh.eigenvalues_ - est_one.eigenvalues_).max())
-    out["htica_projection_err"] = float(np.abs(align_columns(got, ref) - ref).max())
-    check(max(out["htica_eigenvalue_err"], out["htica_projection_err"]) <= FUSED_TOL,
-          f"streaming HTICA over the mesh within {FUSED_TOL} of one device "
-          f"({out['htica_eigenvalue_err']}, {out['htica_projection_err']})")
+    ref = host @ est_one.weights
+    for route, got in (("", est_mesh), ("_default", est_default)):
+        out[f"htica{route}_eigenvalue_err"] = float(
+            np.abs(got.eigenvalues_ - est_one.eigenvalues_).max())
+        out[f"htica{route}_projection_err"] = float(
+            np.abs(align_columns(host @ got.weights, ref) - ref).max())
+        check(max(out[f"htica{route}_eigenvalue_err"],
+                  out[f"htica{route}_projection_err"]) <= FUSED_TOL,
+              f"streaming HTICA, {route[1:] or 'over the mesh'}, within {FUSED_TOL} of one "
+              f"device ({out[f'htica{route}_eigenvalue_err']}, "
+              f"{out[f'htica{route}_projection_err']})")
     del normalized, host
 
     # 6. Deep-TICA with the 10 tries over the mesh, 2 epochs.
@@ -3124,29 +3240,36 @@ def multi_gpu(calc, ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
         c.train()
         return c
 
-    train_one, train_mesh = both("train", train, mesh10)
-    out["train_loss_max_rel_diff"] = max(
-        float(np.max(np.abs(np.asarray(a.metrics[k]) - b.metrics[k])
-                     / np.maximum(np.abs(b.metrics[k]), 1e-12)))
-        for (_, a), (_, b) in zip(train_mesh.try_results, train_one.try_results)
-        for k in ("train_loss", "valid_loss"))
+    train_one, train_mesh, train_default = routes(
+        "train", train, mesh10, TRAIN_CONFIG["training"]["general"]["num_tries"])
+    for route, got in (("", train_mesh), ("_default", train_default)):
+        out[f"train{route}_loss_max_rel_diff"] = max(
+            float(np.max(np.abs(np.asarray(a.metrics[k]) - b.metrics[k])
+                         / np.maximum(np.abs(b.metrics[k]), 1e-12)))
+            for (_, a), (_, b) in zip(got.try_results, train_one.try_results)
+            for k in ("train_loss", "valid_loss"))
+        check(out[f"train{route}_loss_max_rel_diff"] <= CARD_CPU_LOSS_RTOL,
+              f"{route[1:] or 'try-sharded'} per-epoch losses within rel "
+              f"{CARD_CPU_LOSS_RTOL} of one device ({out[f'train{route}_loss_max_rel_diff']})")
     out["train_epoch_seconds_one"] = train_one.epoch_seconds
     out["train_epoch_seconds_sharded"] = train_mesh.epoch_seconds
-    check(out["train_loss_max_rel_diff"] <= CARD_CPU_LOSS_RTOL,
-          f"try-sharded per-epoch losses within rel {CARD_CPU_LOSS_RTOL} of one device "
-          f"({out['train_loss_max_rel_diff']})")
-    del train_one, train_mesh
+    out["train_epoch_seconds_default"] = train_default.epoch_seconds
+    del train_one, train_mesh, train_default
 
     # 7. The 2-D FES with each block's samples over the mesh (K2 a shard).
     before = count(k2)
-    (_, fes1, _), (_, fes, _) = both("fes_2d", lambda: compute_fes(
+    (_, fes1, _), (_, fes, _), (_, fes_d, _) = routes("fes_2d", lambda: compute_fes(
         ctx["cv"], bandwidth=BANDWIDTH, num_bins=NUM_BINS, num_blocks=1, device=device))
     out["fes_2d_k2_launches"] = count(k2) - before
     out["fes_2d_err_vs_phase3"] = float(np.abs(fes - ctx["fes_2d"]).max())
     out["fes_2d_err_vs_one"] = float(np.abs(fes - fes1).max())
-    check(out["fes_2d_k2_launches"] == 1 + 2 * len(mesh)
-          and max(out["fes_2d_err_vs_phase3"], out["fes_2d_err_vs_one"]) <= FES_TOL,
-          f"sharded 2-D FES within {FES_TOL} kJ/mol of phase 3 ({out['fes_2d_err_vs_phase3']})")
+    out["fes_2d_default_err_vs_one"] = float(np.abs(fes_d - fes1).max())
+    check(out["fes_2d_k2_launches"] == 2 + 2 * len(mesh) + out["fes_2d_default_devices"]
+          and max(out["fes_2d_err_vs_phase3"], out["fes_2d_err_vs_one"],
+                  out["fes_2d_default_err_vs_one"]) <= FES_TOL,
+          f"sharded and default-route 2-D FES within {FES_TOL} kJ/mol of phase 3 and one "
+          f"device ({out['fes_2d_err_vs_phase3']}, {out['fes_2d_err_vs_one']}, "
+          f"{out['fes_2d_default_err_vs_one']})")
 
     # 8. One data-parallel step over an NCCL group (one process) on the mesh.
     port = free_port()
@@ -3208,12 +3331,22 @@ def multi_gpu(calc, ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
     check(out["launches"]["pair_distances_kernel"] > 0
           and out["launches"]["kde_logsumexp_kernel"] > 0, "K1 and K2 ran in phase 11")
     steps = [k[:-len("_sharded_s")] for k in out if k.endswith("_sharded_s")]
+    for k in steps:
+        one_s = out[f"{k}_one_s"]
+        out[f"{k}_sharded_ratio"] = out[f"{k}_sharded_s"] / one_s
+        out[f"{k}_default_ratio"] = out[f"{k}_default_s"] / one_s
+        n_default = out[f"{k}_default_devices"]
+        route = ("one device" if n_default == 1 else f"{n_default} devices") + (
+            ", the one-device run (one card)" if out["cards"] == 1 else "")
+        log(f"[{card}] multi_gpu {k}: one device {one_s:.4f} s (first "
+            f"{out[f'{k}_one_first_s']:.4f} s); mesh of {out[f'{k}_sharded_devices']} "
+            f"{out[f'{k}_sharded_s']:.4f} s = {out[f'{k}_sharded_ratio']:.3f} x one device "
+            f"(first {out[f'{k}_sharded_first_s']:.4f} s); default route ({route}) "
+            f"{out[f'{k}_default_s']:.4f} s = {out[f'{k}_default_ratio']:.3f} x one device")
     log(f"[{card}] multi_gpu on {out['mesh']} ({out['cards']} card(s); 10 subspaces and "
-        f"tries on {len(mesh10)}): " + "; ".join(
-            f"{k} {out[k + '_sharded_s']:.3f} s (one device {out[k + '_one_s']:.3f} s)"
-            for k in steps)
-        + f"; NCCL init {out['nccl_init_s']:.2f} s, dp step {out['dp_step_s'] * 1e3:.1f} ms "
-        f"(again {out['dp_step_again_s'] * 1e3:.1f} ms); phase {out['phase11_s']:.1f} s")
+        f"tries on {len(mesh10)}): NCCL init {out['nccl_init_s']:.2f} s, dp step "
+        f"{out['dp_step_s'] * 1e3:.1f} ms (again {out['dp_step_again_s'] * 1e3:.1f} ms); "
+        f"phase {out['phase11_s']:.1f} s")
     log(f"[{card}] multi_gpu held: features {'bit-equal' if out['featurize_float32_bit_equal'] else out['featurize_float32_err_vs_one']}, "
         f"int16 {out['featurize_int16_err_vs_one']:.3g}, FramesToCV "
         f"{out['frames_to_cv_err_vs_phase3']:.3g}, TICA eigenvalues "

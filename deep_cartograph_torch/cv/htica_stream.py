@@ -39,15 +39,14 @@ in the JAX package.
 
 `fit` shards the subspace axis over its `mesh` (`parallel.mesh.Mesh`;
 the device alone without one): each block's contiguous feature slice,
-which holds whole subspaces, goes to its device, and each device
-accumulates its own subspaces' moments and solves their level-1 problems
-with no communication. Only the level-2 projected blocks are gathered,
-on the mesh's first device.
+which holds whole subspaces, goes to its device, and each device's worker
+(`parallel.mesh.run_per_device`) accumulates its own subspaces' moments
+and solves their level-1 problems with no communication. Only the
+level-2 projected blocks are gathered, on the mesh's first device.
 """
 
 from __future__ import annotations
 
-import itertools
 import logging
 import os
 import time
@@ -57,7 +56,7 @@ import numpy as np
 import torch
 
 from deep_cartograph_torch.cv.tica_math import generalized_eigh
-from deep_cartograph_torch.parallel.mesh import Mesh
+from deep_cartograph_torch.parallel.mesh import Mesh, run_per_device
 from deep_cartograph_torch.parallel.sharding import all_gather
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
@@ -321,64 +320,70 @@ class StreamingHTICA:
         self.weights: Optional[np.ndarray] = None  # (F, cv_dim)
         self.eigenvalues_: Optional[np.ndarray] = None
 
-    def _stream_pairs(self, block_iter: Iterable, device: torch.device, columns: slice):
-        """(x_t, x_lag) device pairs, with a lag-frame carry so that pairs
-        straddling block boundaries are kept. A None item is a segment break
-        (a trajectory-file boundary): the carry resets, so no pair crosses
-        it. A block longer than the lag yields two pairs, the (lag, F) seam
+    def _pairs(self, block, carry, device: torch.device, columns: slice):
+        """(the time-lagged (x_t, x_lag) device pairs of one block, the
+        carry for the next): a lag-frame carry keeps the pairs straddling
+        block boundaries. A None block is a segment break (a
+        trajectory-file boundary): the carry resets, so no pair crosses it.
+        A block longer than the lag gives two pairs, the (lag, F) seam
         against the carry and the block's interior, instead of a copy of
         carry + block; the set of pairs is the same. Only the `columns` of
-        each block are taken, on `device`."""
+        the block are taken, on `device`."""
         lag = self.lag
-        carry = None
-        for block in block_iter:
-            if block is None:
-                carry = None
-                continue
-            block = torch.as_tensor(block[:, columns]).to(device, torch.float32)
-            if block.shape[0] > lag and (carry is None or carry.shape[0] == lag):
-                if carry is not None:
-                    yield carry, block[:lag]
-                yield block[:-lag], block[lag:]
-                carry = block[-lag:]
-                continue
-            if carry is not None:
-                block = torch.cat([carry, block], dim=0)
-            if block.shape[0] > lag:
-                yield block[:-lag], block[lag:]
-            carry = block[-lag:]
+        if block is None:
+            return [], None
+        block = torch.as_tensor(block[:, columns]).to(device, torch.float32)
+        if block.shape[0] > lag and (carry is None or carry.shape[0] == lag):
+            pairs = [] if carry is None else [(carry, block[:lag])]
+            return pairs + [(block[:-lag], block[lag:])], block[-lag:]
+        if carry is not None:
+            block = torch.cat([carry, block], dim=0)
+        return ([(block[:-lag], block[lag:])] if block.shape[0] > lag else []), block[-lag:]
 
     def _pass(self, make_block_iter,
               level1: Optional[List[torch.Tensor]] = None) -> List[dict]:
-        """One pass of moments over the blocks: one read of them, each mesh
-        device's contiguous feature slice (whole subspaces) streamed as
-        pairs on that device, in lockstep, into its own state (returned in
-        mesh order). With `level1` (each device's transform), the slices'
-        level-1 projections are gathered on the mesh's first device into
-        one level-2 state. Every pair is shifted by the first pair block's
-        mean: raw second moments cancel when feature means dominate their
-        variance, and covariances do not see a shift."""
+        """One pass of moments over the blocks: one read of them; for each
+        block, each mesh entry's worker (`parallel.mesh.run_per_device`)
+        takes its contiguous feature slice (whole subspaces) as pairs on
+        its device and adds them to its own state (returned in mesh order).
+        With `level1` (each device's transform), the workers project their
+        slices' pairs and the projections are gathered on the mesh's first
+        device into one level-2 state. Every pair is shifted by the first
+        pair block's mean: raw second moments cancel when feature means
+        dominate their variance, and covariances do not see a shift."""
         mesh = self.mesh
+        width = self.n_features // len(mesh)
+        columns = [slice(i * width, (i + 1) * width) for i in range(len(mesh))]
+        carries: List = [None] * len(mesh)
         if level1 is None:
             states = [_zero_state(self.n_sub // len(mesh), self.sub_d, dev)
                       for dev in mesh.devices]
         else:
             states = [_zero_state(1, self._z_dim, self.device)]
-        width = self.n_features // len(mesh)
-        sources = itertools.tee(make_block_iter(), len(mesh))
-        streams = [self._stream_pairs(src, dev, slice(i * width, (i + 1) * width))
-                   for i, (src, dev) in enumerate(zip(sources, mesh.devices))]
         shifts: List = [None] * len(states)
-        for pairs in zip(*streams):
-            if level1 is not None:
-                pairs = [tuple(all_gather([self._project(p[k], w) for p, w in zip(pairs, level1)],
-                                          mesh.local(), 1) for k in (0, 1))]
-            for i, ((x_t, x_lag), state) in enumerate(zip(pairs, states)):
+
+        def accumulate(i, state, pairs):
+            for x_t, x_lag in pairs:
                 if shifts[i] is None:
                     shifts[i] = x_t.double().mean(0)
                 _accumulate_moments(state, x_t, x_lag, *state["s1"].shape, shift=shifts[i])
-        return states
 
+        def take(dev, i, block):
+            pairs, carries[i] = self._pairs(block, carries[i], dev, columns[i])
+            if level1 is not None:
+                return [tuple(self._project(x, level1[i]) for x in p) for p in pairs]
+            accumulate(i, states[i], pairs)
+            return None
+
+        for block in make_block_iter():
+            per_device = run_per_device(take, mesh, range(len(mesh)), [block] * len(mesh))
+            if level1 is not None:
+                # each entry gives the same number of pairs, of equal frames
+                accumulate(0, states[0], [
+                    tuple(all_gather([p[j][k] for p in per_device], mesh.local(), 1)
+                          for k in (0, 1))
+                    for j in range(len(per_device[0]))])
+        return states
     def fit(self, make_block_iter: Callable[[], Iterable]) -> None:
         """make_block_iter: a callable returning a fresh iterator of
         (frames, n_features) blocks, called once per pass; None items are
@@ -400,10 +405,11 @@ class StreamingHTICA:
         return (xs @ level1).transpose(0, 1).reshape(x.shape[0], s * self.sub_out)
 
     def _solve_level1(self, states: List[dict], how: str) -> List[torch.Tensor]:
-        """Each state's subspaces solved on its device; returns each one's
-        level-1 transform there."""
-        solved = [_run_batched_tica(*_moments_to_covs(st)[:2], self.reg, self.sub_out)
-                  for st in states]
+        """Each state's subspaces solved on its device, by its entry's
+        worker; returns each one's level-1 transform there."""
+        solved = run_per_device(
+            lambda dev, st: _run_batched_tica(*_moments_to_covs(st)[:2], self.reg, self.sub_out),
+            self.mesh, states)
         evals1 = np.concatenate([w for w, _ in solved])
         self.level1 = np.concatenate([v for _, v in solved])
         self._level1_t = torch.as_tensor(self.level1, device=self.device)

@@ -15,10 +15,11 @@ a trained calculator gives its own (`projection()`).
     pipeline = FramesToCV.from_model_zip("model.zip", "topology.pdb")
 
 Every batch is sharded by frames over `parallel.mesh.mesh_for(device)`
-(the device alone, or every visible card unless the caller asked for
-another device): each device featurizes its slice (K1) and projects it
-through its own copy of the projection, and the CV values are gathered
-in frame order on the mesh's first device.
+(the device alone unless the caller set a mesh with
+`parallel.mesh.use_mesh`): each device's worker copies its slice up,
+featurizes it (K1) and projects it through the device's own copy of the
+projection, and the CV values are gathered in frame order on the mesh's
+first device.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from deep_cartograph_torch.features.grammar import compile_plan
 from deep_cartograph_torch.geom.engine import ShardedChunkEvaluator
 from deep_cartograph_torch.io.topology import Topology
 from deep_cartograph_torch.models.networks import TrainedNet
-from deep_cartograph_torch.parallel.mesh import mesh_for, shard
+from deep_cartograph_torch.parallel.mesh import mesh_for, split
 from deep_cartograph_torch.parallel.sharding import all_gather
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
@@ -109,8 +110,9 @@ class FramesToCV:
     @torch.no_grad()
     def eval_raw(self, coords) -> torch.Tensor:
         """(C, A, 3) Angstrom frames -> (C, cv_dimension) device tensor."""
-        feats = self.evaluator.eval_local(shard(coords, self.mesh))
-        return all_gather([self._projections[f.device](f) for f in feats], self.mesh.local())
+        cvs = self.evaluator.eval_local(split(coords, self.mesh),
+                                        lambda f: self._projections[f.device](f))
+        return all_gather(cvs, self.mesh.local())
 
     def __call__(self, coords) -> np.ndarray:
         """(C, A, 3) Angstrom frames -> (C, cv_dimension) CV values."""

@@ -7,10 +7,10 @@ length: the kernels mask the ragged last chunk, so nothing is padded.
 
 The Featurizer shards the frames of every chunk over
 `parallel.mesh.mesh_for(device)` (`ShardedChunkEvaluator`; the device
-alone, or every visible card unless the caller asked for another
-device): each device featurizes its contiguous slice of frames through
-K1, and the outputs are gathered in frame order on the mesh's first
-device.
+alone unless the caller set a mesh with `parallel.mesh.use_mesh`): each
+device's worker copies its contiguous slice of frames up and featurizes
+it through K1, and the outputs are gathered in frame order on the mesh's
+first device.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from __future__ import annotations
 import logging
 import time
 from collections import deque
-from typing import Iterator, List, Optional, Tuple
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +28,7 @@ from deep_cartograph_torch.geom.kernels import PlanEvaluator
 from deep_cartograph_torch.io.topology import Topology
 from deep_cartograph_torch.io.traj import iter_frame_chunks
 from deep_cartograph_torch.io.upload import resolve_upload_mode, upload_coords_sharded
-from deep_cartograph_torch.parallel.mesh import Mesh, get_mesh, mesh_for, shard
+from deep_cartograph_torch.parallel.mesh import Mesh, get_mesh, mesh_for, run_per_device, split
 from deep_cartograph_torch.parallel.sharding import all_gather
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
@@ -59,8 +59,9 @@ class Featurizer:
         before coordinate features (PLUMED FIT_TO_TEMPLATE equivalent).
 
         `device`: None means CUDA (raises without a card); "cpu" runs on the
-        host. Each call shards its frames over `mesh_for(device)` (the JAX
-        package's auto-shard over a multi-device backend)."""
+        host. Each call shards its frames over `mesh_for(device)`: the
+        caller's mesh, else the device alone (the JAX package shards over
+        every device)."""
         self.topology = topology
         self.features_list = list(features_list)
         self.plan = compile_plan(self.features_list, topology)
@@ -94,7 +95,7 @@ class Featurizer:
         per-device outputs in frame order, the frame count);
         `torch.cat` of the outputs on one device is the feature matrix."""
         mesh = mesh or get_mesh()
-        return self._evaluator_for(mesh).eval_local(shard(coords, mesh)), len(coords)
+        return self._evaluator_for(mesh).eval_local(split(coords, mesh)), len(coords)
 
     def featurize_trajectory(
         self,
@@ -296,9 +297,10 @@ def _eval_quantized(evaluator: "ShardedChunkEvaluator", block: np.ndarray) -> to
 class ShardedChunkEvaluator:
     """Frame-sharded adapter over `PlanEvaluator` for a mesh of one or more
     devices: every chunk splits into contiguous frame slices, one per mesh
-    entry, each featurized on its device (K1); the outputs are gathered in
-    frame order on the mesh's first device (a mesh of one is one
-    `PlanEvaluator` call). A device listed several times keeps one
+    entry, each copied to its device and featurized there (K1) by that
+    entry's worker (`parallel.mesh.run_per_device`); the outputs are
+    gathered in frame order on the mesh's first device (a mesh of one is
+    one `PlanEvaluator` call). A device listed several times keeps one
     evaluator. Exposes the PlanEvaluator call surface (`__call__`,
     `eval_raw`)."""
 
@@ -313,11 +315,20 @@ class ShardedChunkEvaluator:
                 by_device[dev] = PlanEvaluator(plan, fit_reference, fit_weights, device=dev)
         self.evaluators = [by_device[dev] for dev in mesh.devices]
 
-    def eval_local(self, shards) -> List[torch.Tensor]:
-        """Each shard (on its device) featurized there; empty ones after
-        the first are left out (the first is empty only when all are)."""
-        return [ev.eval_raw(part) for i, (ev, part) in enumerate(zip(self.evaluators, shards))
-                if i == 0 or part.shape[0]]
+    def eval_local(self, parts, then: Optional[Callable] = None) -> List[torch.Tensor]:
+        """Frame slices, one a mesh entry (numpy or tensors, anywhere; e.g.
+        `parallel.mesh.split(coords, mesh)`), each copied to its device and
+        featurized there by its entry's worker, then passed through `then`
+        there if given; empty slices after the first are left out (the
+        first is empty only when all are)."""
+
+        def run(dev, ev, part):
+            feats = ev.eval_raw(part)
+            return feats if then is None else then(feats)
+
+        return [out for i, (out, part) in enumerate(zip(
+            run_per_device(run, self.mesh, self.evaluators, parts), parts))
+            if i == 0 or part.shape[0]]
 
     def eval_shards(self, shards) -> torch.Tensor:
         """Per-device frame shards -> the (C, F) features on the first
@@ -326,7 +337,7 @@ class ShardedChunkEvaluator:
 
     def eval_raw(self, coords_chunk) -> torch.Tensor:
         """(C, A, 3) Angstrom frames -> (C, F) device tensor."""
-        return self.eval_shards(shard(coords_chunk, self.mesh))
+        return self.eval_shards(split(coords_chunk, self.mesh))
 
     def __call__(self, coords_chunk) -> np.ndarray:
         return self.eval_raw(coords_chunk).cpu().numpy()

@@ -28,7 +28,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from deep_cartograph_torch.parallel.mesh import Mesh, shard
+from deep_cartograph_torch.parallel.mesh import Mesh, run_per_device, split
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
 __all__ = [
@@ -96,17 +96,14 @@ def upload_coords(block: np.ndarray, mode: str = "int16",
 def upload_coords_sharded(block: np.ndarray, mesh: Mesh) -> List[torch.Tensor]:
     """int16 upload of a coordinate block over a mesh: the block's codes
     (one scale and offset for the whole block, so each frame has the codes
-    of an unsharded upload) sliced by frames, each slice dequantized to
-    float32 on its device. Returns the slices in mesh order."""
+    of an unsharded upload) sliced by frames, each slice copied to its
+    device and dequantized to float32 there by its entry's worker
+    (`parallel.mesh.run_per_device`). Returns the slices in mesh order."""
     q, scale, offset = quantize_coords(block)
-    scales: dict = {}
-    out = []
-    for part in shard(q, mesh):
-        if part.device not in scales:
-            scales[part.device] = (torch.from_numpy(scale).to(part.device),
-                                   torch.from_numpy(offset).to(part.device))
-        out.append(dequantize_coords(part, *scales[part.device]))
-    return out
+    scale, offset = torch.from_numpy(scale), torch.from_numpy(offset)
+    return run_per_device(
+        lambda dev, part: dequantize_coords(part.to(dev), scale.to(dev), offset.to(dev)),
+        mesh, split(q, mesh))
 
 
 def resolve_upload_mode(mode: str = "auto") -> str:

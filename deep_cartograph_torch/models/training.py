@@ -14,9 +14,10 @@ device and gathered per try with global row indices, and every step
 updates all tries together. Each loop turn is one epoch: its batch indices
 go up once, and its losses come back in one read of the host. `Trainer.fit`
 is the same program with T = 1. With a mesh of n devices that divides T
-(`parallel.mesh.mesh_for`), each device holds T / n of the tries, their
-optimizer state and a copy of the dataset, and runs the same step on them
-with no collective; results come back in try order.
+(`parallel.mesh.mesh_for`, set by the caller's `use_mesh`), each device
+holds T / n of the tries, their optimizer state and a copy of the
+dataset, and its worker thread (`parallel.mesh.run_per_device`) runs the
+epoch's steps on them with no collective; results come back in try order.
 
 The optimizers are written out on the stacked tensors, following optax's
 formulas, because torch's differ: RMSprop's epsilon sits inside the square
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from deep_cartograph_torch.parallel.mesh import Mesh, mesh_for
+from deep_cartograph_torch.parallel.mesh import Mesh, mesh_for, run_per_device
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -327,10 +328,6 @@ class _Lane:
     params: Params = field(default_factory=dict)
     opt_state: Dict = field(default_factory=dict)
     gens: List[torch.Generator] = field(default_factory=list)
-    gb: Optional[torch.Tensor] = None
-    wb: Optional[torch.Tensor] = None
-    lrs: Optional[torch.Tensor] = None
-    loss_sum: Optional[torch.Tensor] = None
 
 # The name of each training step's span in a torch.profiler trace.
 STEP_SPAN = "trainer.step"
@@ -440,29 +437,32 @@ class Trainer:
         off = dict(index_offsets or {})
         voff = off if valid_data is None else {}
         train_idx = np.asarray(train_idx, np.int64)
-        lanes = self._lanes(T)
+        mesh, lanes = self._lanes(T)
 
         # The dataset once per device; each lane holds its tries' validation
-        # rows, parameters, optimizer state and generators.
-        placed: Dict[torch.device, tuple] = {}
-        for lane in lanes:
-            if lane.device not in placed:
-                data = {k: _to_device(v, lane.device) for k, v in full_data.items()}
-                vdata = (data if valid_data is None else
-                         {k: _to_device(v, lane.device) for k, v in valid_data.items()})
-                placed[lane.device] = (data, vdata)
-            lane.data, vdata = placed[lane.device]
-            vidx = torch.as_tensor(np.asarray(valid_idx, np.int64)[lane.tries],
-                                   device=lane.device)
-            lane.valid_batch = {k: v[vidx + voff.get(k, 0)] for k, v in vdata.items()}
-            lane.valid_batch["weight"] = torch.ones(vidx.shape, device=lane.device)
-            lane.params = {k: v[lane.tries].detach().to(lane.device, torch.float32)
-                           .clone().requires_grad_(True) for k, v in params_stack.items()}
-            lane.gens = [torch.Generator(device=lane.device).manual_seed(int(s))
-                         for s in list(seeds)[lane.tries]]
+        # rows, parameters, optimizer state and generators. Each device's
+        # worker copies its own (`parallel.mesh.run_per_device`).
+        def place(dev):
+            data = {k: _to_device(v, dev) for k, v in full_data.items()}
+            return data, (data if valid_data is None else
+                          {k: _to_device(v, dev) for k, v in valid_data.items()})
+
+        devices = list(dict.fromkeys(mesh.devices))
+        placed = dict(zip(devices, run_per_device(place, Mesh(devices))))
         optimizer = Optimizer(cfg.optimizer_name, cfg.optimizer_kwargs)
-        for lane in lanes:
+
+        def set_up(dev, lane):
+            lane.data, vdata = placed[dev]
+            vidx = torch.as_tensor(np.asarray(valid_idx, np.int64)[lane.tries], device=dev)
+            lane.valid_batch = {k: v[vidx + voff.get(k, 0)] for k, v in vdata.items()}
+            lane.valid_batch["weight"] = torch.ones(vidx.shape, device=dev)
+            lane.params = {k: v[lane.tries].detach().to(dev, torch.float32)
+                           .clone().requires_grad_(True) for k, v in params_stack.items()}
+            lane.gens = [torch.Generator(device=dev).manual_seed(int(s))
+                         for s in list(seeds)[lane.tries]]
             lane.opt_state = optimizer.init(lane.params)
+
+        run_per_device(set_up, mesh, lanes)
         base_lr = cfg.optimizer_kwargs.get("lr", 1e-3)
         schedule = self._one_cycle(steps)
         plateaus = self._plateaus(T)
@@ -537,38 +537,42 @@ class Trainer:
                 )[:, None].repeat(T, 1)
             else:
                 lrs = lr_tries[None].repeat(steps, 0)
-            for lane in lanes:
-                lane.gb = torch.as_tensor(gb[lane.tries], device=lane.device)
-                lane.wb = torch.as_tensor(wb[lane.tries], device=lane.device)
-                lane.lrs = torch.as_tensor(lrs[:, lane.tries], device=lane.device)
-                lane.loss_sum = torch.zeros(lane.gb.shape[0], device=lane.device)
+            validate = (epoch + 1) % check_every == 0
 
-            for s in range(steps):
-                # a span for torch.profiler; a no-op when none is recording
-                with record_function(STEP_SPAN):
-                    for lane in lanes:
-                        idx = lane.gb[:, s]
+            def run_epoch(dev, lane):
+                """The lane's steps of the epoch, then, at a validation
+                epoch, its (2 + aux, tries) losses on the host."""
+                gb_d = torch.as_tensor(gb[lane.tries], device=dev)
+                wb_d = torch.as_tensor(wb[lane.tries], device=dev)
+                lrs_d = torch.as_tensor(lrs[:, lane.tries], device=dev)
+                loss_sum = torch.zeros(gb_d.shape[0], device=dev)
+                for s in range(steps):
+                    # a span for torch.profiler; a no-op when none is recording
+                    with record_function(STEP_SPAN):
+                        idx = gb_d[:, s]
                         batch = {k: v[idx + off.get(k, 0)] for k, v in lane.data.items()}
-                        batch["weight"] = lane.wb[:, s]
+                        batch["weight"] = wb_d[:, s]
                         loss, _ = self.loss_fn(lane.params, batch, lane.gens, beta, True)
                         grads = torch.autograd.grad(loss.sum(), list(lane.params.values()))
                         optimizer.step(lane.params, dict(zip(lane.params, grads)),
-                                       lane.opt_state, lane.lrs[s])
-                        lane.loss_sum += loss.detach()
-
-            if (epoch + 1) % check_every != 0:
-                self.epoch_seconds.append(time.perf_counter() - t_epoch)
-                continue
-            parts = []
-            for lane in lanes:
+                                       lane.opt_state, lrs_d[s])
+                        loss_sum += loss.detach()
+                if not validate:
+                    return None
                 with torch.no_grad():
                     valid_loss, valid_aux = self.loss_fn(
                         lane.params, lane.valid_batch, lane.gens, beta, False
                     )
-                aux_keys = list(valid_aux)
-                parts.append(torch.stack(
-                    [lane.loss_sum / steps, valid_loss] + [valid_aux[k] for k in aux_keys]
-                ).cpu().numpy().astype(np.float64))
+                return list(valid_aux), torch.stack(
+                    [loss_sum / steps, valid_loss] + list(valid_aux.values())
+                ).cpu().numpy().astype(np.float64)
+
+            ran = run_per_device(run_epoch, mesh, lanes)
+            if not validate:
+                self.epoch_seconds.append(time.perf_counter() - t_epoch)
+                continue
+            aux_keys = ran[0][0]
+            parts = [part for _, part in ran]
             host = np.concatenate(parts, axis=1)
             self.epoch_seconds.append(time.perf_counter() - t_epoch)
             tl_host, vl_host = host[0], host[1]
@@ -659,15 +663,16 @@ class Trainer:
                 ))
         return results
 
-    def _lanes(self, T: int) -> List["_Lane"]:
-        """The devices the T tries train on: with a mesh that divides T
-        (`parallel.mesh.mesh_for`), T / n contiguous tries on each of its n
-        devices, with no collective; else all on the trainer's device."""
+    def _lanes(self, T: int) -> Tuple[Mesh, List["_Lane"]]:
+        """The mesh the T tries train on and its lanes: with a mesh that
+        divides T (`parallel.mesh.mesh_for`), T / n
+        contiguous tries on each of its n devices, with no collective; else
+        all on the trainer's device."""
         mesh = mesh_for(self.device)
         if T % len(mesh):
             mesh = Mesh((self.device,))
         if len(mesh) > 1:
             logger.info("Sharding %d training tries over %d devices.", T, len(mesh))
         per = T // len(mesh)
-        return [_Lane(dev, slice(i * per, (i + 1) * per))
-                for i, dev in enumerate(mesh.devices)]
+        return mesh, [_Lane(dev, slice(i * per, (i + 1) * per))
+                      for i, dev in enumerate(mesh.devices)]

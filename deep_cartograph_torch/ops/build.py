@@ -24,7 +24,8 @@ import os
 import shutil
 import subprocess
 import tempfile
-from dataclasses import dataclass
+import threading
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -38,17 +39,21 @@ HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-fopenmp", "-pthread")
 SOURCES = ("pair_distances", "kde_logsumexp", "pairwise_distance_matrix")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()   # the mesh's worker threads load libraries too
 
 
 @dataclass
 class KernelStats:
     """Per-kernel call counters: `launches` counts CUDA kernel launches,
     `plain_calls` counts calls that took the plain PyTorch version (CPU
-    tensors). Callers reset them to 0 around a region they measure."""
+    tensors). Callers reset them to 0 around a region they measure. The
+    counts are taken under a lock: the mesh's worker threads launch at
+    once."""
 
     name: str
     launches: int = 0
     plain_calls: int = 0
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
 
     def count_launch(self) -> None:
         """Count one launch. A call recorded into a CUDA graph under capture
@@ -57,7 +62,13 @@ class KernelStats:
         import torch
 
         if not torch.cuda.is_current_stream_capturing():
-            self.launches += 1
+            with self._lock:
+                self.launches += 1
+
+    def count_plain(self) -> None:
+        """Count one call of the plain version."""
+        with self._lock:
+            self.plain_calls += 1
 
 
 def _nvcc() -> str:
@@ -144,23 +155,25 @@ def load_host_library(src: Path) -> ctypes.CDLL:
     """The ctypes handle of host C++ source `src`, compiled by `g++` on first
     use; raises with the compiler output if the build fails."""
     key = str(src)
-    lib = _loaded.get(key)
-    if lib is None:
-        build_host_all([src])
-        lib = ctypes.CDLL(str(_library_path(src, HOST_FLAGS)))
-        _loaded[key] = lib
+    with _load_lock:
+        lib = _loaded.get(key)
+        if lib is None:
+            build_host_all([src])
+            lib = ctypes.CDLL(str(_library_path(src, HOST_FLAGS)))
+            _loaded[key] = lib
     return lib
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """The ctypes handle of kernel library `name`, built on first use.
     Every library exports `const char* dc_error_string(int)`."""
-    lib = _loaded.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build_all([name])[name]))
-        lib.dc_error_string.argtypes = [ctypes.c_int]
-        lib.dc_error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all([name])[name]))
+            lib.dc_error_string.argtypes = [ctypes.c_int]
+            lib.dc_error_string.restype = ctypes.c_char_p
+            _loaded[name] = lib
     return lib
 
 

@@ -74,7 +74,7 @@ def kde_logsumexp(
     grid_s = _scale(grid_points, scale)
     samples_s = _scale(samples, scale)
     if device.type == "cpu":
-        STATS.plain_calls += 1
+        STATS.count_plain()
         return kde_logsumexp_plain(grid_s, samples_s)
     if device.type != "cuda":
         raise ValueError(f"Unsupported device: {device}")

@@ -60,7 +60,7 @@ def pair_distances(points: torch.Tensor, pairs: torch.Tensor) -> torch.Tensor:
     """
     _check(points, pairs)
     if points.device.type == "cpu":
-        STATS.plain_calls += 1
+        STATS.count_plain()
         return pair_distances_plain(points, pairs)
     if points.device.type != "cuda":
         raise ValueError(f"Unsupported device: {points.device}")

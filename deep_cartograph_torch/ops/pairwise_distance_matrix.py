@@ -52,7 +52,7 @@ def pairwise_distance_matrix(coords: torch.Tensor) -> torch.Tensor:
     if coords.dtype != torch.float32:
         raise TypeError(f"coords must be float32, got {coords.dtype}")
     if coords.device.type == "cpu":
-        STATS.plain_calls += 1
+        STATS.count_plain()
         return pairwise_distance_matrix_plain(coords)
     if coords.device.type != "cuda":
         raise ValueError(f"Unsupported device: {coords.device}")

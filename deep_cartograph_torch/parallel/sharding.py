@@ -12,7 +12,10 @@ emits. Here they are explicit functions over lists of per-device tensors
     next (across processes, `batch_isend_irecv` at the seams).
 
 A copy between two cards is ordered after the source device's queued
-work (`_to`), so a partial is never read before it is written.
+work (`_to`), so a partial is never read before it is written. The
+per-device work of `sharded_covariances` and `sharded_kde_logsumexp`
+(copying a shard in, reducing it) runs on each entry's worker
+(`parallel.mesh.run_per_device`), so the cards work at once.
 
 Frame-sharded moments (`sharded_covariances`,
 `sharded_feature_matrix_stats`) sum per-device partials; the KDE
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from deep_cartograph_torch.ops.kde import kde_logsumexp
-from deep_cartograph_torch.parallel.mesh import Mesh, get_mesh, shard
+from deep_cartograph_torch.parallel.mesh import Mesh, get_mesh, run_per_device, shard, split
 
 
 # ---------------------------------------------------------------------------
@@ -145,19 +148,26 @@ def sharded_covariances(x_t, x_lag, mesh: Optional[Mesh] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(C0, symmetrized Ctau) with the frame axis sharded over the mesh, by
     mlcolvar's estimator (mean and C0 from x_t only; cf.
-    cv/tica_math.timelagged_covariances): per-device partial sums,
-    `psum`. float32 tensors on the mesh's first device."""
+    cv/tica_math.timelagged_covariances): per-device partial sums, each
+    entry's on its worker, then `psum`. float32 tensors on the mesh's
+    first device."""
     mesh = mesh or get_mesh()
-    a = _float_shards(x_t, mesh)
-    b = _float_shards(x_lag, mesh)
-    count = psum(_count(a), mesh)
-    mu = psum([p.sum(0) for p in a], mesh) / count
-    c0_parts, ctau_parts = [], []
-    for pa, pb in zip(a, b):
-        m = _to(mu, pa.device)
+
+    def place(dev, pa, pb):
+        pa = _to(pa, dev).float().contiguous()
+        pb = _to(pb, dev).float().contiguous()
+        return pa, pb, _count([pa])[0], pa.sum(0)
+
+    a, b, counts, sums = zip(*run_per_device(place, mesh, split(x_t, mesh), split(x_lag, mesh)))
+    count = psum(counts, mesh)
+    mu = psum(sums, mesh) / count
+
+    def products(dev, pa, pb):
+        m = _to(mu, dev)
         ac, bc = pa - m, pb - m
-        c0_parts.append(ac.T @ ac)
-        ctau_parts.append(ac.T @ bc + bc.T @ ac)
+        return ac.T @ ac, ac.T @ bc + bc.T @ ac
+
+    c0_parts, ctau_parts = zip(*run_per_device(products, mesh, a, b))
     return psum(c0_parts, mesh) / count, 0.5 * psum(ctau_parts, mesh) / count
 
 
@@ -277,23 +287,25 @@ def feature_sharded_timelagged_ring(x_t, x_lag, mesh: Optional[Mesh] = None
 def sharded_kde_logsumexp(grid_points, samples, inv_two_bw2: float,
                           mesh: Optional[Mesh] = None) -> torch.Tensor:
     """`ops.kde.kde_logsumexp` with the samples frame-sharded over the
-    mesh: each device computes the logsumexp of its shard through K2, on a
-    copy of the grid, and the shards combine as
-    lse(all) = m + log sum_i exp(lse_i - m), m = max_i lse_i (lse_0
-    itself on a mesh of one). Returns the raw (grid,) logsumexp, float32, on
-    the mesh's first device; the log density is it minus log(samples)."""
+    mesh: each entry's worker copies its shard and the grid to its device
+    and computes the shard's logsumexp there through K2, and the shards
+    combine as lse(all) = m + log sum_i exp(lse_i - m), m = max_i lse_i
+    (lse_0 itself on a mesh of one). Returns the raw (grid,) logsumexp,
+    float32, on the mesh's first device; the log density is it minus
+    log(samples)."""
     mesh = mesh or get_mesh()
     first = mesh.devices[0]
     x = torch.as_tensor(samples, dtype=torch.float32)
     if x.dim() == 1:
         x = x[:, None]
     g = torch.as_tensor(grid_points, dtype=torch.float32).reshape(-1, x.shape[1])
-    grids = {}
-    lses = []
-    for p in shard(x, mesh):
-        if p.shape[0]:
-            grid = grids.setdefault(p.device, _to(g, p.device))
-            lses.append(kde_logsumexp(grid, p, inv_two_bw2))
+
+    def shard_lse(dev, part):
+        if not part.shape[0]:
+            return None
+        return kde_logsumexp(_to(g, dev), _to(part, dev), inv_two_bw2)
+
+    lses = [lse for lse in run_per_device(shard_lse, mesh, split(x, mesh)) if lse is not None]
     if len(lses) == 1 and mesh.group is None:
         return _to(lses[0], first)
     if not lses:  # this process holds no sample

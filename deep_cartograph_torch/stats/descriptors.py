@@ -14,11 +14,12 @@ statistics of all features at once through the OpenMP batch routine of
 `stats/csrc/diptest.cpp` (compiled by g++ at first use; a failed build
 raises), their p-values from the null table of `stats/dip.py`.
 
-With a mesh of several devices (`parallel.mesh.mesh_for`), entropy and
-std of a host matrix of at least `utils.device.SMALL_WORK_ELEMENTS`
-elements shard the feature axis: each device reduces its contiguous slice
-of every feature block, with no collective, as in the JAX package (which
-leaves a matrix already on a device where it is).
+With a mesh of several devices (`parallel.mesh.mesh_for`, set by the
+caller's `use_mesh`), entropy and std of a host matrix of at least
+`utils.device.SMALL_WORK_ELEMENTS` elements shard the feature axis: each
+device's worker copies up and reduces its contiguous slice of every
+feature block, and brings the result back, with no collective, as in the
+JAX package (which leaves a matrix already on a device where it is).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from deep_cartograph_torch.ops.build import load_host_library
-from deep_cartograph_torch.parallel.mesh import Mesh, mesh_for, shard
+from deep_cartograph_torch.parallel.mesh import Mesh, mesh_for, run_per_device, split
 from deep_cartograph_torch.utils import device as device_policy
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
 
@@ -82,24 +83,48 @@ def _minmax_all(features: torch.Tensor):
 
 def _feature_mesh(features: Matrix, device: torch.device) -> Mesh:
     """What entropy and std shard the features of a matrix over:
-    `mesh_for(device)` for a host matrix of at least `SMALL_WORK_ELEMENTS`
-    elements, else `device` alone."""
+    `mesh_for(device)` for a host matrix of at least
+    `SMALL_WORK_ELEMENTS` elements, else `device` alone."""
     on_host = not isinstance(features, torch.Tensor) or features.device.type == "cpu"
     if on_host and features.shape[0] * features.shape[1] >= device_policy.SMALL_WORK_ELEMENTS:
         return mesh_for(device)
     return Mesh((device,))
 
 
-def _device_blocks(features: Matrix, mesh: Mesh):
-    """float32 feature blocks of at most BLOCK_ELEMENT_BUDGET elements,
-    each block's contiguous feature slices on the mesh's devices in order
-    (empty slices left out)."""
+def _block_starts(features: Matrix) -> range:
+    """The first column of each feature block of at most
+    BLOCK_ELEMENT_BUDGET elements."""
     n, f = features.shape
-    width = max(1, min(f, BLOCK_ELEMENT_BUDGET // max(n, 1)))
-    for start in range(0, f, width):
-        for part in shard(features[:, start : start + width], mesh, axis=1):
-            if part.shape[1]:
-                yield part.float()
+    return range(0, f, max(1, min(f, BLOCK_ELEMENT_BUDGET // max(n, 1))))
+
+
+def _device_blocks(features: Matrix, device: torch.device):
+    """float32 feature blocks of at most BLOCK_ELEMENT_BUDGET elements, on
+    `device`."""
+    starts = _block_starts(features)
+    for start in starts:
+        yield torch.as_tensor(features[:, start : start + starts.step]).to(device).float()
+
+
+def _per_feature(features: Matrix, device: torch.device, reduce) -> np.ndarray:
+    """reduce(block) of every float32 feature block, on the host, in
+    feature order. Over `_feature_mesh`, each entry's worker copies up,
+    reduces and brings back its contiguous slice of every block (None for
+    an empty slice)."""
+    mesh = _feature_mesh(features, device)
+    starts = _block_starts(features)
+
+    def run(dev, column):
+        out = []
+        for start in starts:
+            part = split(features[:, start : start + starts.step], mesh, axis=1)[column]
+            out.append(reduce(part.to(dev).float()).cpu().numpy() if part.shape[1] else None)
+        return out
+
+    per_device = run_per_device(run, mesh, range(len(mesh)))
+    # block by block, each block's slices in mesh order
+    return np.concatenate([parts[b] for b in range(len(starts)) for parts in per_device
+                           if parts[b] is not None])
 
 
 def shannon_entropy(
@@ -109,20 +134,13 @@ def shannon_entropy(
     `device`: None means CUDA (raises without a card); "cpu" runs on the
     host."""
     dev = resolve_device(device)
-    parts = [
-        _entropy_all(block, num_bins).cpu().numpy()
-        for block in _device_blocks(features, _feature_mesh(features, dev))
-    ]
-    return np.round(np.concatenate(parts), 3)
+    return np.round(_per_feature(features, dev, lambda b: _entropy_all(b, num_bins)), 3)
 
 
 def standard_deviation(features: Matrix, device: DeviceLike = None) -> np.ndarray:
     """Per-feature population std, rounded to 3 decimals like the
     reference."""
-    dev = resolve_device(device)
-    parts = [_std_all(block).cpu().numpy()
-             for block in _device_blocks(features, _feature_mesh(features, dev))]
-    return np.round(np.concatenate(parts), 3)
+    return np.round(_per_feature(features, resolve_device(device), _std_all), 3)
 
 
 def feature_statistics(
@@ -132,7 +150,7 @@ def feature_statistics(
     and returned as float64 (the CV normalization's input)."""
     dev = resolve_device(device)
     parts: Dict[str, List[np.ndarray]] = {"mean": [], "std": [], "min": [], "max": []}
-    for block in _device_blocks(features, Mesh((dev,))):
+    for block in _device_blocks(features, dev):
         fmin, fmax = _minmax_all(block)
         for key, value in (("mean", block.mean(0)), ("std", _std_all(block)),
                            ("min", fmin), ("max", fmax)):

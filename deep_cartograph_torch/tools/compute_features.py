@@ -49,9 +49,10 @@ _featurizer_cache: Dict = {}
 def engine_device(engine: Dict, device: DeviceLike = None) -> torch.device:
     """The featurization device from the `engine` block: "auto" and
     "default" mean the tool's device (CUDA unless `device="cpu"`), "cpu"
-    the host. A setting the port cannot honour raises. On CUDA the
-    Featurizer shards its frames over every visible card; `shard_frames`
-    is read nowhere, as in the JAX package."""
+    the host. A setting the port cannot honour raises. The Featurizer's
+    sharding follows `parallel.mesh.mesh_for(device)` (the caller's mesh,
+    else the device alone);
+    `shard_frames` is read nowhere, as in the JAX package."""
     if engine["dtype"] != "float32":
         raise ValueError(
             f"engine.dtype {engine['dtype']!r} is not supported: the port "

@@ -13,7 +13,8 @@ setup(
                                 "default_config.yml"],
         "deep_cartograph_torch": ["ops/csrc/*.cu", "ops/csrc/*.cuh", "io/csrc/*.cpp",
                                   "stats/csrc/*.cpp",
-                                  "stats/dip_null_table.npz", "log_config/*.ini"],
+                                  "stats/dip_null_table.npz", "log_config/*.ini",
+                                  "default_config.yml"],
     },
     python_requires=">=3.10",
     entry_points={

@@ -369,8 +369,8 @@ def test_filter_stats_shard_the_feature_axis(mesh, monkeypatch):
     small_ent = port_desc.shannon_entropy(x, device="cpu")
     small_std = port_desc.standard_deviation(x, device="cpu")
     placed = []
-    real = port_desc.shard
-    monkeypatch.setattr(port_desc, "shard",
+    real = port_desc.run_per_device
+    monkeypatch.setattr(port_desc, "run_per_device",
                         lambda *a, **k: placed.append(a[1]) or real(*a, **k))
     monkeypatch.setattr("deep_cartograph_torch.utils.device.SMALL_WORK_ELEMENTS", 0)
     monkeypatch.setattr("deep_cartograph_tpu.utils.device.SMALL_WORK_ELEMENTS", 0)
@@ -389,8 +389,8 @@ def test_filter_stats_shard_the_feature_axis(mesh, monkeypatch):
 
 def test_filter_stats_keep_small_work_off_the_mesh(mesh, monkeypatch):
     placed = []
-    real = port_desc.shard
-    monkeypatch.setattr(port_desc, "shard",
+    real = port_desc.run_per_device
+    monkeypatch.setattr(port_desc, "run_per_device",
                         lambda *a, **k: placed.append(a[1]) or real(*a, **k))
     x = np.ones((100, 10), np.float32)
     port_desc.standard_deviation(x, device="cpu")
