@@ -831,7 +831,6 @@ def main_path(coords: np.ndarray, tmp: str, stats) -> dict:
         kept_features, np.zeros(N_FRAMES, np.int64), kept))
     trained, result["train_s"] = synced(calc.train)
     check(trained, "training produced a valid model")
-    result["epoch_s"] = calc.epoch_seconds
     _, result["normalize_cv_s"] = synced(calc.normalize_cv)
 
     pipeline = FramesToCV(calc.projection(), top, kept)
@@ -1398,7 +1397,6 @@ def check_autoencoder_training(calc, cv: str, out: dict) -> None:
     out[f"{cv}_tries"] = [{"try": n, "score": r.score, "best_epoch": r.best_epoch,
                            "description": r.description} for n, r in calc.try_results]
     out[f"{cv}_selected_score"] = calc.cv_score
-    out[f"{cv}_epoch_s"] = calc.epoch_seconds
 
 
 def check_batchnorm_fold(calc, out: dict) -> None:
@@ -1536,8 +1534,7 @@ def autoencoders(calc_deep, linear: dict, ctx: dict, tmp: str, stats, card: str,
         calcs[name] = calc
         log(f"[{card}] {name} at {n_frames} x {len(kept)}: train "
             f"{out[f'{name}_train_s']:.3f} s for {calc.num_tries} tries x "
-            f"{len(calc.epoch_seconds)} epochs (per epoch "
-            f"{', '.join(f'{e:.3f}' for e in calc.epoch_seconds)} s), "
+            f"{calc.max_epochs} epochs at most, "
             f"post-normalization {out[f'{name}_normalize_cv_s']:.3f} s")
 
     # 2. The batchnorm fold.
@@ -3251,9 +3248,6 @@ def multi_gpu(calc, ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
         check(out[f"train{route}_loss_max_rel_diff"] <= CARD_CPU_LOSS_RTOL,
               f"{route[1:] or 'try-sharded'} per-epoch losses within rel "
               f"{CARD_CPU_LOSS_RTOL} of one device ({out[f'train{route}_loss_max_rel_diff']})")
-    out["train_epoch_seconds_one"] = train_one.epoch_seconds
-    out["train_epoch_seconds_sharded"] = train_mesh.epoch_seconds
-    out["train_epoch_seconds_default"] = train_default.epoch_seconds
     del train_one, train_mesh, train_default
 
     # 7. The 2-D FES with each block's samples over the mesh (K2 a shard).
@@ -3456,7 +3450,6 @@ def main() -> int:
         native = native_io(ctx, coords, tmp, stats, card)
         multi = multi_gpu(calc, ctx, coords, tmp, stats, card)
         del ctx
-    epochs = result["epoch_s"]
     log(f"[{card}] featurize {N_FRAMES / result['featurize_s']:.0f} frames/s "
         f"({result['featurize_s']:.3f} s, host decode alone "
         f"{result['decode_s']:.3f} s, by read_dcd slices {result['decode_slices_s']:.3f} s), "
@@ -3465,11 +3458,10 @@ def main() -> int:
         f"{result['filter_s'] * 1e3:.1f} ms (again {result['filter_again_s'] * 1e3:.1f} ms) "
         f"({result['n_kept']} of 1171 kept), data to the calculator "
         f"{result['set_data_s']:.3f} s")
-    per_epoch = ", ".join(f"{e:.3f}" for e in epochs)
     scores = ", ".join(f"{t['score']:.5f}" for t in result["tries"])
     log(f"[{card}] train {result['train_s']:.3f} s for "
-        f"{len(result['tries'])} tries x {len(epochs)} epochs (per epoch "
-        f"{per_epoch} s), post-normalization {result['normalize_cv_s']:.3f} s; "
+        f"{len(result['tries'])} tries x {calc.max_epochs} epochs at most, "
+        f"post-normalization {result['normalize_cv_s']:.3f} s; "
         f"scores {scores}; selected {result['selected_score']:.5f}")
     log(f"[{card}] projection {result['project_s'] * 1e3:.1f} ms, FES 1-D x2 "
         f"{result['fes_1d_s'] * 1e3:.1f} ms, FES 2-D {result['fes_2d_s'] * 1e3:.1f} ms "

@@ -74,6 +74,7 @@ from deep_cartograph_torch.utils.common import (
     zip_files,
 )
 from deep_cartograph_torch.utils.device import DeviceLike
+from deep_cartograph_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -138,7 +139,6 @@ class NonLinear(CVCalculator):
         self.cv_score: Optional[float] = None
         self.metrics: Optional[Dict] = None
         self.try_results: List[Tuple[int, TrainResult]] = []
-        self.epoch_seconds: List[float] = []
         self.architecture: Optional[Dict] = None
         self.params: Optional[Params] = None
         self.module = None
@@ -274,6 +274,7 @@ class NonLinear(CVCalculator):
             post_annealing_checkpoint=self.uses_post_annealing(),
         )
 
+    @annotate("cv.train")
     def train(self) -> bool:
         """Train the seeded tries and keep the best valid one. Returns False
         when no try produced a valid model."""
@@ -300,7 +301,6 @@ class NonLinear(CVCalculator):
         self.try_results = self._run_tries_ensemble(
             trainer, dataset, provided_valid, n_total, n_train
         )
-        self.epoch_seconds = trainer.epoch_seconds
 
         best: Optional[TrainResult] = None
         for try_num, result in self.try_results:
@@ -327,7 +327,8 @@ class NonLinear(CVCalculator):
         self.params = best.params
         self.cv_score = best.score
         self.metrics = best.metrics
-        self.finalize_model()
+        with annotate("cv.finalize"):
+            self.finalize_model()
         self.cv = self
         logger.info("Best model score across %d tries: %.5f", self.num_tries,
                     best.score)

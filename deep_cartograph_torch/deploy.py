@@ -39,6 +39,7 @@ from deep_cartograph_torch.models.networks import TrainedNet
 from deep_cartograph_torch.parallel.mesh import mesh_for, split
 from deep_cartograph_torch.parallel.sharding import all_gather
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
+from deep_cartograph_torch.utils.profiling import annotate
 
 
 def _buffer(x) -> torch.Tensor:
@@ -110,13 +111,20 @@ class FramesToCV:
     @torch.no_grad()
     def eval_raw(self, coords) -> torch.Tensor:
         """(C, A, 3) Angstrom frames -> (C, cv_dimension) device tensor."""
-        cvs = self.evaluator.eval_local(split(coords, self.mesh),
-                                        lambda f: self._projections[f.device](f))
+
+        def project(features):
+            with annotate("serve.project"):
+                return self._projections[features.device](features)
+
+        cvs = self.evaluator.eval_local(split(coords, self.mesh), project)
         return all_gather(cvs, self.mesh.local())
 
+    @annotate("serve.call")
     def __call__(self, coords) -> np.ndarray:
         """(C, A, 3) Angstrom frames -> (C, cv_dimension) CV values."""
-        return self.eval_raw(coords).cpu().numpy()
+        cvs = self.eval_raw(coords)
+        with annotate("transfer.d2h"):
+            return cvs.cpu().numpy()
 
     @classmethod
     def from_model_zip(

@@ -31,6 +31,7 @@ from deep_cartograph_torch.io.upload import resolve_upload_mode, upload_coords_s
 from deep_cartograph_torch.parallel.mesh import Mesh, get_mesh, mesh_for, run_per_device, split
 from deep_cartograph_torch.parallel.sharding import all_gather
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
+from deep_cartograph_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -97,6 +98,7 @@ class Featurizer:
         mesh = mesh or get_mesh()
         return self._evaluator_for(mesh).eval_local(split(coords, mesh)), len(coords)
 
+    @annotate("featurize.trajectory")
     def featurize_trajectory(
         self,
         trajectory_path: str,
@@ -146,7 +148,9 @@ class Featurizer:
             else:
                 outputs.append(evaluator.eval_raw(block))
         if outputs:
-            result = torch.cat(outputs).cpu().numpy()
+            result = torch.cat(outputs)
+            with annotate("transfer.d2h"):
+                result = result.cpu().numpy()
         else:
             result = np.zeros((0, self.plan.n_features), np.float32)
         dt = time.time() - t0
@@ -210,7 +214,8 @@ class Featurizer:
 
         def flush_oldest():
             nonlocal host_avail
-            part = pending.popleft().cpu().numpy()
+            with annotate("transfer.d2h"):
+                part = pending.popleft().cpu().numpy()
             host_parts.append(part)
             host_avail += part.shape[0]
 
@@ -340,7 +345,9 @@ class ShardedChunkEvaluator:
         return self.eval_shards(split(coords_chunk, self.mesh))
 
     def __call__(self, coords_chunk) -> np.ndarray:
-        return self.eval_raw(coords_chunk).cpu().numpy()
+        features = self.eval_raw(coords_chunk)
+        with annotate("transfer.d2h"):
+            return features.cpu().numpy()
 
 
 def featurize_trajectory(

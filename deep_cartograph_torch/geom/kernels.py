@@ -22,6 +22,7 @@ from deep_cartograph_torch.ops.pair_distances import (
     pair_distances as _pair_distances_kernel,
 )
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
+from deep_cartograph_torch.utils.profiling import annotate
 
 # ---------------------------------------------------------------------------
 # Elementary geometry (vectorized over leading frame axes)
@@ -322,31 +323,35 @@ class PlanEvaluator:
 
     def __call__(self, coords_chunk) -> np.ndarray:
         """(C, A, 3) Angstrom float -> (C, F) feature matrix (nm / radians)."""
-        return self.eval_raw(coords_chunk).cpu().numpy()
+        features = self.eval_raw(coords_chunk)
+        with annotate("transfer.d2h"):
+            return features.cpu().numpy()
 
     def eval_raw(self, coords_chunk) -> torch.Tensor:
         """Evaluate and return the device tensor (no host download)."""
-        coords = torch.as_tensor(coords_chunk, dtype=torch.float32).to(self.device)
+        with annotate("transfer.h2d"):
+            coords = torch.as_tensor(coords_chunk, dtype=torch.float32).to(self.device)
         if coords.dim() != 3 or coords.shape[1] < self._n_atoms_needed:
             raise IndexError(
                 f"frames of shape {tuple(coords.shape)} lack the plan's "
                 f"{self._n_atoms_needed} atoms"
             )
-        return evaluate_plan_chunk(
-            coords,
-            self._dist_pairs,
-            self._dist_center_a,
-            self._dist_center_b,
-            self._dihedral_quads,
-            self._dihedral_mode,
-            self._coord_atoms,
-            self._coord_axes,
-            self._center_atoms,
-            self._center_mask,
-            self._out_perm,
-            self._fit_reference,
-            self._fit_weights,
-            n_features=self._n_features,
-            has_centers=self._has_centers,
-            identity_layout=self._identity_layout,
-        )
+        with annotate("features.eval"):
+            return evaluate_plan_chunk(
+                coords,
+                self._dist_pairs,
+                self._dist_center_a,
+                self._dist_center_b,
+                self._dihedral_quads,
+                self._dihedral_mode,
+                self._coord_atoms,
+                self._coord_axes,
+                self._center_atoms,
+                self._center_mask,
+                self._out_perm,
+                self._fit_reference,
+                self._fit_weights,
+                n_features=self._n_features,
+                has_centers=self._has_centers,
+                identity_layout=self._identity_layout,
+            )

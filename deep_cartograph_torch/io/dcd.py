@@ -39,6 +39,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 from deep_cartograph_torch.ops.build import load_host_library
+from deep_cartograph_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -217,7 +218,9 @@ def iter_dcd_chunks_prefetch(
     _, n_frames, _, endian, _ = read_dcd_header(path)
     if endian == ">":
         for start in range(0, n_frames, chunk):
-            yield read_dcd(path, start, min(start + chunk, n_frames))
+            with annotate("io.next_chunk"):
+                block = read_dcd(path, start, min(start + chunk, n_frames))
+            yield block
         return
     lib = _lib()
     handle = lib.dcd_open(os.fsencode(path), chunk, prefetch_depth)
@@ -226,11 +229,13 @@ def iter_dcd_chunks_prefetch(
     try:
         buf = np.empty((chunk, lib.dcd_natoms(handle), 3), np.float32)
         while True:
-            n = lib.dcd_next_chunk(handle, buf.ctypes.data_as(_F32P))
+            with annotate("io.next_chunk"):   # the wait for the decoder
+                n = lib.dcd_next_chunk(handle, buf.ctypes.data_as(_F32P))
+                block = buf[:n].copy() if n > 0 else None
             if n == 0:
                 return
             if n < 0:
                 raise DCDError(f"Native DCD decode error ({n}) in {path}")
-            yield buf[:n].copy()
+            yield block
     finally:
         lib.dcd_close(handle)

@@ -30,6 +30,7 @@ import torch
 
 from deep_cartograph_torch.parallel.mesh import Mesh, run_per_device, split
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
+from deep_cartograph_torch.utils.profiling import annotate
 
 __all__ = [
     "quantize_coords",
@@ -101,9 +102,12 @@ def upload_coords_sharded(block: np.ndarray, mesh: Mesh) -> List[torch.Tensor]:
     (`parallel.mesh.run_per_device`). Returns the slices in mesh order."""
     q, scale, offset = quantize_coords(block)
     scale, offset = torch.from_numpy(scale), torch.from_numpy(offset)
-    return run_per_device(
-        lambda dev, part: dequantize_coords(part.to(dev), scale.to(dev), offset.to(dev)),
-        mesh, split(q, mesh))
+
+    def upload(dev, part):
+        with annotate("transfer.h2d"):
+            return dequantize_coords(part.to(dev), scale.to(dev), offset.to(dev))
+
+    return run_per_device(upload, mesh, split(q, mesh))
 
 
 def resolve_upload_mode(mode: str = "auto") -> str:

@@ -19,6 +19,7 @@ from typing import Iterator, List, Optional
 import numpy as np
 
 from deep_cartograph_torch.ops.build import load_host_library
+from deep_cartograph_torch.utils.profiling import annotate
 
 _MAGIC = 1995
 _NM_TO_ANGSTROM = 10.0
@@ -212,7 +213,8 @@ def iter_xtc_chunks_prefetch(
     if natoms is None:
         # tiny or irregular frames: decode the bytes already read serially,
         # then slice into chunks
-        coords = _decode_frames_serial(lib, data, buf, selected)
+        with annotate("io.next_chunk"):
+            coords = _decode_frames_serial(lib, data, buf, selected)
         for s in range(0, coords.shape[0], chunk):
             yield coords[s : s + chunk]
         return
@@ -243,7 +245,8 @@ def iter_xtc_chunks_prefetch(
     thread.start()
     try:
         while True:
-            item = q.get()
+            with annotate("io.next_chunk"):   # the wait for the decoder
+                item = q.get()
             if item is None:
                 break
             if isinstance(item, BaseException):

@@ -30,16 +30,15 @@ from __future__ import annotations
 
 import logging
 import math
-import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from deep_cartograph_torch.parallel.mesh import Mesh, mesh_for, run_per_device
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
+from deep_cartograph_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -352,7 +351,6 @@ class Trainer:
         self.loss_fn = loss_fn
         self.config = config
         self.device = resolve_device(device)
-        self.epoch_seconds: List[float] = []
 
     def _plateaus(self, n: int) -> Optional[List[ReduceLROnPlateau]]:
         """One host-side plateau scheduler per try, or None."""
@@ -409,6 +407,7 @@ class Trainer:
             result.best_epoch = self.config.max_epochs - 1
         return result
 
+    @annotate("trainer.fit")
     def fit_ensemble(
         self,
         params_stack: Params,
@@ -448,7 +447,6 @@ class Trainer:
                           {k: _to_device(v, dev) for k, v in valid_data.items()})
 
         devices = list(dict.fromkeys(mesh.devices))
-        placed = dict(zip(devices, run_per_device(place, Mesh(devices))))
         optimizer = Optimizer(cfg.optimizer_name, cfg.optimizer_kwargs)
 
         def set_up(dev, lane):
@@ -462,7 +460,9 @@ class Trainer:
                          for s in list(seeds)[lane.tries]]
             lane.opt_state = optimizer.init(lane.params)
 
-        run_per_device(set_up, mesh, lanes)
+        with annotate("trainer.place"):
+            placed = dict(zip(devices, run_per_device(place, Mesh(devices))))
+            run_per_device(set_up, mesh, lanes)
         base_lr = cfg.optimizer_kwargs.get("lr", 1e-3)
         schedule = self._one_cycle(steps)
         plateaus = self._plateaus(T)
@@ -515,66 +515,67 @@ class Trainer:
                 cfg.max_epochs,
             )
         lr_tries = np.full(T, base_lr, np.float32)
-        self.epoch_seconds = []
 
         for epoch in range(cfg.max_epochs):
             if stopped.all():
                 break
-            t_epoch = time.perf_counter()
-            beta = (cfg.kl_annealing.beta(epoch)
-                    if cfg.kl_annealing is not None else 0.0)
-            gb = np.empty((T, steps, cfg.batch_size), np.int64)
-            wb = np.empty((T, steps, cfg.batch_size), np.float32)
-            for t in range(T):
-                batches, weights = _make_batches(
-                    n_train, cfg.batch_size, cfg.shuffle, np_rngs[t]
-                )
-                gb[t] = train_idx[t][batches]
-                wb[t] = weights
-            if schedule is not None:
-                lrs = np.array(
-                    [schedule(epoch * steps + s) for s in range(steps)], np.float32
-                )[:, None].repeat(T, 1)
-            else:
-                lrs = lr_tries[None].repeat(steps, 0)
+            with annotate("trainer.epoch_setup"):
+                beta = (cfg.kl_annealing.beta(epoch)
+                        if cfg.kl_annealing is not None else 0.0)
+                gb = np.empty((T, steps, cfg.batch_size), np.int64)
+                wb = np.empty((T, steps, cfg.batch_size), np.float32)
+                for t in range(T):
+                    batches, weights = _make_batches(
+                        n_train, cfg.batch_size, cfg.shuffle, np_rngs[t]
+                    )
+                    gb[t] = train_idx[t][batches]
+                    wb[t] = weights
+                if schedule is not None:
+                    lrs = np.array(
+                        [schedule(epoch * steps + s) for s in range(steps)], np.float32
+                    )[:, None].repeat(T, 1)
+                else:
+                    lrs = lr_tries[None].repeat(steps, 0)
             validate = (epoch + 1) % check_every == 0
 
             def run_epoch(dev, lane):
                 """The lane's steps of the epoch, then, at a validation
                 epoch, its (2 + aux, tries) losses on the host."""
-                gb_d = torch.as_tensor(gb[lane.tries], device=dev)
-                wb_d = torch.as_tensor(wb[lane.tries], device=dev)
-                lrs_d = torch.as_tensor(lrs[:, lane.tries], device=dev)
-                loss_sum = torch.zeros(gb_d.shape[0], device=dev)
+                with annotate("trainer.epoch_setup"):
+                    gb_d = torch.as_tensor(gb[lane.tries], device=dev)
+                    wb_d = torch.as_tensor(wb[lane.tries], device=dev)
+                    lrs_d = torch.as_tensor(lrs[:, lane.tries], device=dev)
+                    loss_sum = torch.zeros(gb_d.shape[0], device=dev)
                 for s in range(steps):
-                    # a span for torch.profiler; a no-op when none is recording
-                    with record_function(STEP_SPAN):
+                    with annotate(STEP_SPAN):
                         idx = gb_d[:, s]
                         batch = {k: v[idx + off.get(k, 0)] for k, v in lane.data.items()}
                         batch["weight"] = wb_d[:, s]
-                        loss, _ = self.loss_fn(lane.params, batch, lane.gens, beta, True)
-                        grads = torch.autograd.grad(loss.sum(), list(lane.params.values()))
-                        optimizer.step(lane.params, dict(zip(lane.params, grads)),
-                                       lane.opt_state, lrs_d[s])
+                        with annotate("trainer.forward"):
+                            loss, _ = self.loss_fn(lane.params, batch, lane.gens, beta, True)
+                        with annotate("trainer.backward"):
+                            grads = torch.autograd.grad(loss.sum(),
+                                                        list(lane.params.values()))
+                        with annotate("trainer.optimizer"):
+                            optimizer.step(lane.params, dict(zip(lane.params, grads)),
+                                           lane.opt_state, lrs_d[s])
                         loss_sum += loss.detach()
                 if not validate:
                     return None
-                with torch.no_grad():
+                with annotate("trainer.validate"), torch.no_grad():
                     valid_loss, valid_aux = self.loss_fn(
                         lane.params, lane.valid_batch, lane.gens, beta, False
                     )
-                return list(valid_aux), torch.stack(
-                    [loss_sum / steps, valid_loss] + list(valid_aux.values())
-                ).cpu().numpy().astype(np.float64)
+                    return list(valid_aux), torch.stack(
+                        [loss_sum / steps, valid_loss] + list(valid_aux.values())
+                    ).cpu().numpy().astype(np.float64)
 
             ran = run_per_device(run_epoch, mesh, lanes)
             if not validate:
-                self.epoch_seconds.append(time.perf_counter() - t_epoch)
                 continue
             aux_keys = ran[0][0]
             parts = [part for _, part in ran]
             host = np.concatenate(parts, axis=1)
-            self.epoch_seconds.append(time.perf_counter() - t_epoch)
             tl_host, vl_host = host[0], host[1]
             if schedule is not None:
                 # the rate of the epoch's last update, as the JAX side reads it

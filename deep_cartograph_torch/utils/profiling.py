@@ -1,25 +1,21 @@
-"""Profiling and per-stage timing.
+"""Profiling: stage traces and the program's spans.
 
-The port of the JAX package's utils/profiling.py: each stage logs its wall
-clock in the same format ("Elapsed time (<stage>): HH h MM min SS s"). Set
-DEEP_CARTO_PROFILE_DIR to capture a `torch.profiler` Chrome trace per
-stage (host and, on the card, CUDA activity) under
-<dir>/<stage>/trace.json; `annotate` then names a region inside it. With
-the variable unset, nothing is traced and nothing is added.
+Set DEEP_CARTO_PROFILE_DIR to capture a `torch.profiler` Chrome trace per
+tool stage (host and, on the card, CUDA activity) under
+<dir>/<stage>/trace.json. The port's spans (`annotate`) land in that trace,
+or in any other `torch.profiler` session that is recording, on the clock of
+the card's kernels and copies. With no profiler recording, nothing is
+traced and a span costs one flag check.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
-import logging
 import os
-import time
 from typing import Iterator
 
 import torch
-
-logger = logging.getLogger(__name__)
 
 PROFILE_ENV = "DEEP_CARTO_PROFILE_DIR"
 
@@ -44,31 +40,48 @@ def maybe_trace(stage_name: str) -> Iterator[None]:
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
 
 
-@contextlib.contextmanager
-def stage_timer(stage_name: str) -> Iterator[None]:
-    """Log a stage's wall clock, traced as `maybe_trace` traces."""
-    start = time.time()
-    try:
-        with maybe_trace(stage_name):
-            yield
-    finally:
-        elapsed = time.time() - start
-        logger.info(
-            "Elapsed time (%s): %s",
-            stage_name,
-            time.strftime("%H h %M min %S s", time.gmtime(elapsed)),
-        )
+class annotate:
+    """A named span (`torch.profiler.record_function`) while a profiler is
+    recording: the trace of `maybe_trace`, the benchmark's, or any caller's
+    own `torch.profiler.profile`. With none recording it checks one flag and
+    adds nothing to the trace. Spans are named `<layer>.<what>`; every span
+    of the port goes through here.
 
+        with annotate("transfer.d2h"):
+            host = features.cpu()
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named region inside a stage's trace (`record_function`) when
-    DEEP_CARTO_PROFILE_DIR is set; nothing otherwise."""
-    if not os.environ.get(PROFILE_ENV):
-        yield
-        return
-    with torch.profiler.record_function(name):
-        yield
+        @annotate("trainer.fit")          # each call in a span of its own
+        def fit_ensemble(...): ...
+
+    Never around a `yield`, and never on a generator function: a span left
+    open while the consumer runs would cover the consumer's work.
+    """
+
+    __slots__ = ("name", "_span")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._span = None
+
+    def __enter__(self) -> None:
+        if torch.autograd.profiler._is_profiler_enabled:
+            self._span = torch.profiler.record_function(self.name)
+            self._span.__enter__()
+
+    def __exit__(self, *exc) -> None:
+        if self._span is not None:
+            span, self._span = self._span, None
+            span.__exit__(*exc)
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with annotate(name):
+                return fn(*args, **kwargs)
+
+        return spanned
 
 
 def traced(stage_name: str):
