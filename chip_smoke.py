@@ -3120,16 +3120,26 @@ def multi_gpu(calc, ctx: dict, coords: np.ndarray, tmp: str, stats, card: str,
                   "sharded int16 features within phase 10's bound")
         del single, sharded, default
 
-    # 2. Serving: FramesToCV over the 100,000 frames.
+    # 2. Serving: FramesToCV over the 100,000 frames, K1 once a chunk of the
+    # staged copy up of each device's slice (`PlanEvaluator.chunk_frames`).
+    step = FramesToCV(calc.projection(), top, ctx["kept"], device=device) \
+        .evaluator.evaluators[0].chunk_frames(ctx["frames"].shape[1])
+
+    def staged_chunks(n_devices):
+        """K1 launches of one call over `n_devices` devices' slices."""
+        return sum(-(-len(part) // step) for part in np.array_split(ctx["frames"], n_devices))
+
     before = count(k1)
     single, sharded, default = routes("frames_to_cv", lambda: FramesToCV(
         calc.projection(), top, ctx["kept"], device=device)(ctx["frames"]))
     out["frames_to_cv_k1_launches"] = count(k1) - before
+    out["frames_to_cv_chunk_frames"] = step
     out["frames_to_cv_err_vs_phase3"] = float(np.abs(sharded - ctx["cv"]).max())
     out["frames_to_cv_err_vs_one"] = float(np.abs(sharded - single).max())
     out["frames_to_cv_default_err_vs_one"] = float(np.abs(default - single).max())
     check(out["frames_to_cv_k1_launches"]
-          == 2 + 2 * len(mesh) + out["frames_to_cv_default_devices"]
+          == 2 * staged_chunks(1) + 2 * staged_chunks(len(mesh))
+          + staged_chunks(out["frames_to_cv_default_devices"])
           and max(out["frames_to_cv_err_vs_phase3"], out["frames_to_cv_err_vs_one"],
                   out["frames_to_cv_default_err_vs_one"]) <= 1e-5,
           f"sharded and default-route FramesToCV within 1e-5 of phase 3 and one device "

@@ -19,7 +19,11 @@ Every batch is sharded by frames over `parallel.mesh.mesh_for(device)`
 `parallel.mesh.use_mesh`): each device's worker copies its slice up,
 featurizes it (K1) and projects it through the device's own copy of the
 projection, and the CV values are gathered in frame order on the mesh's
-first device.
+first device. Host frames go up a chunk at a time, only the atoms the
+features read, through the pinned ring of the device's evaluator
+(geom/kernels.py): a chunk is copied while the device featurizes and
+projects the one before, its CV rows are written into the call's output,
+and the whole feature matrix is never held at once.
 """
 
 from __future__ import annotations
@@ -112,7 +116,7 @@ class FramesToCV:
     def eval_raw(self, coords) -> torch.Tensor:
         """(C, A, 3) Angstrom frames -> (C, cv_dimension) device tensor."""
 
-        def project(features):
+        def project(features):   # each chunk's features, as they come
             with annotate("serve.project"):
                 return self._projections[features.device](features)
 

@@ -134,15 +134,15 @@ class Featurizer:
                     f"{timeout} s after {n_frames} frames."
                 )
             n_frames += block.shape[0]
-            # The blocking copy up waits for the work queued before it (the
-            # previous chunk's kernels) and for its own bytes; this chunk's
-            # kernels are then only queued and run while the host decodes
-            # the next chunk. Outputs stay on the device until one download
-            # at the end. An int16 upload quantizes the chunk on the host and
-            # dequantizes it on the device (io/upload.py). (The JAX package
-            # pads a short last chunk by repeating its last frame before
-            # quantizing: that moves no axis' minimum or maximum, so the
-            # unpadded chunk has the same codes.)
+            # The staged copy up (geom/kernels.py) returns once the chunk's
+            # atoms are in a pinned slot; its copy and kernels are only
+            # queued and run while the host decodes the next chunk. Outputs
+            # stay on the device until one download at the end. An int16
+            # upload quantizes the chunk on the host and dequantizes it on
+            # the device (io/upload.py). (The JAX package pads a short last
+            # chunk by repeating its last frame before quantizing: that
+            # moves no axis' minimum or maximum, so the unpadded chunk has
+            # the same codes.)
             if upload_mode == "int16":
                 outputs.append(_eval_quantized(evaluator, block))
             else:
@@ -221,7 +221,7 @@ class Featurizer:
 
         def dispatch():
             nonlocal fill, dispatched
-            pending.append(evaluator.eval_raw(buf[:fill].copy()))
+            pending.append(evaluator.eval_raw(buf[:fill]))
             dispatched += fill
             fill = 0
             while len(pending) > pipeline_depth:
@@ -323,13 +323,13 @@ class ShardedChunkEvaluator:
     def eval_local(self, parts, then: Optional[Callable] = None) -> List[torch.Tensor]:
         """Frame slices, one a mesh entry (numpy or tensors, anywhere; e.g.
         `parallel.mesh.split(coords, mesh)`), each copied to its device and
-        featurized there by its entry's worker, then passed through `then`
-        there if given; empty slices after the first are left out (the
-        first is empty only when all are)."""
+        featurized there by its entry's worker, each chunk of the copy up
+        then passed through `then` there if given (`PlanEvaluator.eval_raw`);
+        empty slices after the first are left out (the first is empty only
+        when all are)."""
 
         def run(dev, ev, part):
-            feats = ev.eval_raw(part)
-            return feats if then is None else then(feats)
+            return ev.eval_raw(part, then)
 
         return [out for i, (out, part) in enumerate(zip(
             run_per_device(run, self.mesh, self.evaluators, parts), parts))

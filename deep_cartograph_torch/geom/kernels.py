@@ -4,7 +4,10 @@ geom/kernels.py.
 A chunk of frames (C, A, 3) in Angstroms is uploaded once and every feature
 of every frame is evaluated on the device: distances through kernel K1
 (ops/pair_distances.py), dihedrals, centers and the Kabsch fit as plain
-PyTorch ops.
+PyTorch ops. Host frames go up staged (`PlanEvaluator.eval_raw`): the
+plan's atoms alone, gathered on host threads (csrc/stage_atoms.cpp) into
+a ring of pinned slots and copied up a chunk a slot while the device works
+on the chunk before; `UPLOAD_STATS` counts what went up.
 
 Unit conventions match PLUMED colvars output: distances and coordinates in
 nm, dihedral angles in radians (IUPAC sign).
@@ -12,11 +15,17 @@ nm, dihedral angles in radians (IUPAC sign).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import os
+import threading
+from contextlib import contextmanager
+from pathlib import Path
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from deep_cartograph_torch.ops.build import UploadStats, load_host_library
 from deep_cartograph_torch.ops.pair_distances import (
     ANGSTROM_TO_NM,
     pair_distances as _pair_distances_kernel,
@@ -228,11 +237,155 @@ def evaluate_plan_chunk(
     return cat[:, out_perm.long()]
 
 
+# ---------------------------------------------------------------------------
+# The staged copy up of host frames
+# ---------------------------------------------------------------------------
+
+# Host frames go to the device a chunk at a time through a ring of
+# RING_SLOTS slots of SLOT_BYTES each (pinned host memory and its device
+# twin on a card, host memory alone on the CPU), which every evaluator
+# allocates at its first call of host frames and keeps.
+SLOT_BYTES = 32 << 20
+RING_SLOTS = 3
+# A chunk's gather takes a host thread for each GATHER_GRAIN floats it stages
+# (1 MiB of a slot), at most the cores but one (left to the threads that run
+# beside it, such as the DCD reader's prefetch thread), split among the
+# evaluators staging at once (a mesh's workers): a featurize block of 2,048
+# frames of 80 atoms takes 2 threads, a full slot every thread of its share.
+GATHER_GRAIN = 1 << 18
+UPLOAD_STATS = UploadStats()
+_STAGE_SOURCE = Path(__file__).resolve().parent / "csrc" / "stage_atoms.cpp"
+# Calls inside a staged loop now, in any evaluator: the host's cores are the
+# process's, so the count is too.
+_staging_calls = 0
+_staging_lock = threading.Lock()
+
+
+def _gather_team(floats: int) -> int:
+    """Host threads for a gather of `floats` floats (`GATHER_GRAIN`)."""
+    cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else os.cpu_count()
+    share = max(1, (cores or 1) - 1) // max(1, _staging_calls)
+    return max(1, min(-(-floats // GATHER_GRAIN), share))
+
+
+def stage_atoms(frames: np.ndarray, atoms: Optional[np.ndarray], out: torch.Tensor,
+                threads: int = 1) -> None:
+    """Copy the `atoms` (int64 indices; every atom if None) of each frame of
+    `frames`, a C-ordered float32 (n, A, 3) array, into `out`, a contiguous
+    float32 host tensor of n * len(atoms) * 3 (or n * A * 3) elements, on
+    `threads` host threads (`geom/csrc/stage_atoms.cpp`)."""
+    lib = load_host_library(_STAGE_SOURCE)
+    fn = lib.stage_atoms
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int]
+        fn.restype = None
+    n, n_atoms = frames.shape[:2]
+    width = n_atoms if atoms is None else len(atoms)
+    if (frames.ndim != 3 or frames.shape[2] != 3 or frames.dtype != np.float32
+            or not frames.flags.c_contiguous
+            or out.dtype != torch.float32 or out.device.type != "cpu"
+            or not out.is_contiguous() or out.numel() != n * width * 3):
+        raise ValueError("stage_atoms needs C-ordered float32 (n, A, 3) frames and a "
+                         "contiguous float32 host tensor of their staged size")
+    if atoms is not None and (atoms.dtype != np.int64 or not atoms.flags.c_contiguous
+                              or (width and not 0 <= atoms.min() <= atoms.max() < n_atoms)):
+        raise ValueError(f"stage_atoms needs C-ordered int64 atoms in [0, {n_atoms})")
+    fn(frames.ctypes.data, n, n_atoms, None if atoms is None else atoms.ctypes.data,
+       width, out.data_ptr(), max(1, int(threads)))
+
+
+@contextmanager
+def _staging():
+    """Count the calls staging at once, for `_gather_team`."""
+    global _staging_calls
+    with _staging_lock:
+        _staging_calls += 1
+    try:
+        yield
+    finally:
+        with _staging_lock:
+            _staging_calls -= 1
+
+
+class _StagingRing:
+    """The slots a call's chunks go up through, taken in turn. On a card:
+    pinned host slots, their device twins and a copy stream; a host slot is
+    written only once its last copy has run (`copied`), a device slot only
+    once the work that read it has run (`read`), and the current stream
+    waits for a chunk's copy before its work. On the CPU: host slots, which
+    the work reads where they are."""
+
+    def __init__(self, device: torch.device, floats: int):
+        self.device, self.floats = device, floats
+        self.on_card = device.type == "cuda"
+        self.host = [torch.empty(floats, dtype=torch.float32, pin_memory=self.on_card)
+                     for _ in range(RING_SLOTS)]
+        self.next = 0
+        if self.on_card:
+            self.stream = torch.cuda.Stream(device)
+            self.dev = [torch.empty(floats, dtype=torch.float32, device=device)
+                        for _ in range(RING_SLOTS)]
+            for slot in self.dev:   # freed only once the copies queued on it ran
+                slot.record_stream(self.stream)
+            self.copied = [torch.cuda.Event() for _ in range(RING_SLOTS)]
+            self.read = [torch.cuda.Event() for _ in range(RING_SLOTS)]
+
+    def stage(self, frames: np.ndarray, atoms: Optional[np.ndarray]
+              ) -> Tuple[torch.Tensor, int, bool]:
+        """`frames`' `atoms` into the next slot and, on a card, copied up
+        from it: (the (n, width, 3) frames where the work reads them, the
+        slot, whether the slot had to be waited for)."""
+        k = self.next
+        self.next = (k + 1) % RING_SLOTS
+        n = frames.shape[0]
+        width = frames.shape[1] if atoms is None else len(atoms)
+        size = n * width * 3
+        waited = False
+        if self.on_card and not self.copied[k].query():
+            waited = True
+            self.copied[k].synchronize()
+        host = self.host[k][:size]
+        stage_atoms(frames, atoms, host, _gather_team(size))
+        host = host.view(n, width, 3)
+        if not self.on_card:
+            return host, k, waited
+        dev = self.dev[k][:size].view(n, width, 3)
+        self.stream.wait_event(self.read[k])
+        with torch.cuda.stream(self.stream):
+            dev.copy_(host, non_blocking=True)
+        self.copied[k].record(self.stream)
+        torch.cuda.current_stream(self.device).wait_event(self.copied[k])
+        return dev, k, waited
+
+    def done_reading(self, k: int) -> None:
+        """The work that reads slot `k` is queued: the slot's next copy waits
+        for it."""
+        if self.on_card:
+            self.read[k].record(torch.cuda.current_stream(self.device))
+
+
+class _AtomIndices(NamedTuple):
+    """The plan's index tensors that number atoms, for one layout of the
+    frames: the caller's, or the compact one of the plan's atoms alone."""
+
+    dist_pairs: torch.Tensor
+    dihedral_quads: torch.Tensor
+    coord_atoms: torch.Tensor
+    center_atoms: torch.Tensor
+
+
 class PlanEvaluator:
     """Evaluator for a FeaturePlan on one topology, on one device.
 
     Build once per (feature list, topology); call on frame chunks of any
     length (the kernels mask ragged edges, so there is no padding).
+
+    Host frames go to the device staged (`eval_raw`): only the atoms the
+    plan reads, gathered on host threads into the slots of the evaluator's
+    ring (`RING_SLOTS` of `SLOT_BYTES`, pinned on a card) and copied up a
+    chunk a slot on a stream of their own, while the device works on the
+    chunk before. Frames already on a device are used as they are.
     """
 
     def __init__(
@@ -249,6 +402,8 @@ class PlanEvaluator:
             raise ValueError(f"Unknown gather_strategy: {gather_strategy!r}")
         self.plan = plan
         self.device = resolve_device(device)
+        self._ring: Optional[_StagingRing] = None
+        self._ring_lock = threading.Lock()
         self._build(plan, fit_reference, fit_weights, gather_strategy)
 
     def _tensor(self, array, dtype=torch.int32) -> torch.Tensor:
@@ -262,7 +417,6 @@ class PlanEvaluator:
             self._tensor(fit_weights, torch.float32) if fit_weights is not None else None
         )
         dist_pairs = plan.dist_pairs.reshape(-1, 2)
-        self._dist_pairs = self._tensor(dist_pairs)
         n_dist = dist_pairs.shape[0]
         n_atoms_total = int(plan.dist_pairs.max() + 1) if n_dist else 0
         has_centers = bool(
@@ -288,11 +442,8 @@ class PlanEvaluator:
             )
         )
         self.strategy = "selector" if use_matmul and n_dist and not has_centers else "gather"
-        self._dihedral_quads = self._tensor(plan.dihedral_quads.reshape(-1, 4))
         self._dihedral_mode = self._tensor(plan.dihedral_mode)
-        self._coord_atoms = self._tensor(plan.coord_atoms)
         self._coord_axes = self._tensor(plan.coord_axes)
-        self._center_atoms = self._tensor(plan.center_atoms)
         self._center_mask = self._tensor(plan.center_mask, torch.float32)
         self._dist_center_a = self._tensor(plan.dist_center_a)
         self._dist_center_b = self._tensor(plan.dist_center_b)
@@ -314,12 +465,25 @@ class PlanEvaluator:
         self._n_features = int(plan.n_features)
         # Every atom index of the plan, checked once here on the host so no
         # call waits for the device to check them.
-        atoms = np.concatenate([
-            np.asarray(a).reshape(-1)
-            for a in (plan.dist_pairs, plan.dihedral_quads, plan.coord_atoms,
-                      plan.center_atoms)
-        ])
+        index_arrays = (dist_pairs, plan.dihedral_quads.reshape(-1, 4),
+                        plan.coord_atoms, plan.center_atoms)
+        atoms = np.concatenate([np.asarray(a).reshape(-1) for a in index_arrays])
         self._n_atoms_needed = int(atoms.max() + 1) if atoms.size else 0
+        self._full = _AtomIndices(*(self._tensor(a) for a in index_arrays))
+        # The atoms the plan reads: not the placeholder of a pair's center
+        # side nor a center's padding, which the features never read. Staged
+        # frames hold these alone, in this order, and the compact indices
+        # number them so; placeholders and padding point at the first.
+        read = np.concatenate([
+            dist_pairs[plan.dist_center_a < 0, 0], dist_pairs[plan.dist_center_b < 0, 1],
+            plan.dihedral_quads.reshape(-1), plan.coord_atoms.reshape(-1),
+            plan.center_atoms[plan.center_mask > 0],
+        ]).astype(np.int64)
+        self._atoms = np.unique(read)
+        remap = np.zeros(max(self._n_atoms_needed, 1), np.int64)
+        remap[self._atoms] = np.arange(len(self._atoms))
+        self._compact = _AtomIndices(*(self._tensor(remap[np.asarray(a)])
+                                       for a in index_arrays))
 
     def __call__(self, coords_chunk) -> np.ndarray:
         """(C, A, 3) Angstrom float -> (C, F) feature matrix (nm / radians)."""
@@ -327,31 +491,94 @@ class PlanEvaluator:
         with annotate("transfer.d2h"):
             return features.cpu().numpy()
 
-    def eval_raw(self, coords_chunk) -> torch.Tensor:
-        """Evaluate and return the device tensor (no host download)."""
-        with annotate("transfer.h2d"):
-            coords = torch.as_tensor(coords_chunk, dtype=torch.float32).to(self.device)
-        if coords.dim() != 3 or coords.shape[1] < self._n_atoms_needed:
+    def eval_raw(self, coords_chunk, then: Optional[Callable] = None) -> torch.Tensor:
+        """(C, A, 3) Angstrom frames -> their (C, F) features on the device
+        (no host download); with `then`, then(features) of every chunk,
+        its rows in one (C, ...) tensor.
+
+        Host frames (numpy or a CPU tensor) go up staged, a chunk a slot of
+        the ring, the next chunk gathered and copied while the device works
+        on this one; only the plan's atoms, unless a fit reference (aligned
+        on every atom) needs them all or the frames hold no others. The call
+        returns with the caller's frames read. Frames on a device go as they
+        are, in one piece."""
+        if isinstance(coords_chunk, torch.Tensor) and coords_chunk.device.type != "cpu":
+            with annotate("transfer.h2d"):
+                coords = torch.as_tensor(coords_chunk, dtype=torch.float32).to(self.device)
+            self._check_shape(coords.shape)
+            with annotate("features.eval"):
+                features = self._evaluate(coords, self._full)
+            return features if then is None else then(features)
+        if isinstance(coords_chunk, torch.Tensor):
+            coords_chunk = coords_chunk.detach().numpy()
+        frames = np.asarray(coords_chunk)
+        self._check_shape(frames.shape)
+        with self._ring_lock, _staging():
+            return self._eval_staged(frames, then)
+
+    def chunk_frames(self, n_atoms: int) -> int:
+        """Frames of `n_atoms` atoms that one chunk of the staged copy up
+        holds: a slot of what goes up of each (the plan's atoms, or all)."""
+        return max(1, SLOT_BYTES // (12 * max(self._staged_width(n_atoms), 1)))
+
+    def _staged_width(self, n_atoms: int) -> int:
+        """Atoms a frame of `n_atoms` keeps staged: the plan's alone, unless
+        a fit reference (aligned on every atom) needs them all or the frames
+        hold no others."""
+        gather = self._fit_reference is None and len(self._atoms) < n_atoms
+        return len(self._atoms) if gather else n_atoms
+
+    def _check_shape(self, shape) -> None:
+        if len(shape) != 3 or shape[2] != 3 or shape[1] < self._n_atoms_needed:
             raise IndexError(
-                f"frames of shape {tuple(coords.shape)} lack the plan's "
+                f"frames of shape {tuple(shape)} lack the plan's "
                 f"{self._n_atoms_needed} atoms"
             )
-        with annotate("features.eval"):
-            return evaluate_plan_chunk(
-                coords,
-                self._dist_pairs,
-                self._dist_center_a,
-                self._dist_center_b,
-                self._dihedral_quads,
-                self._dihedral_mode,
-                self._coord_atoms,
-                self._coord_axes,
-                self._center_atoms,
-                self._center_mask,
-                self._out_perm,
-                self._fit_reference,
-                self._fit_weights,
-                n_features=self._n_features,
-                has_centers=self._has_centers,
-                identity_layout=self._identity_layout,
-            )
+
+    def _eval_staged(self, frames: np.ndarray, then: Optional[Callable]) -> torch.Tensor:
+        n, n_atoms = frames.shape[:2]
+        width = self._staged_width(n_atoms)
+        atoms, indices = (self._atoms, self._compact) if width < n_atoms else (None, self._full)
+        step = self.chunk_frames(n_atoms)
+        floats = max(SLOT_BYTES // 4, 3 * step * width)
+        if self._ring is None or self._ring.floats < floats:
+            self._ring = _StagingRing(self.device, floats)
+        ring = self._ring
+        UPLOAD_STATS.count_call()
+        out = None
+        for a in range(0, max(n, 1), step):
+            b = min(a + step, n)
+            with annotate("transfer.h2d"):
+                block = np.ascontiguousarray(frames[a:b], dtype=np.float32)
+                coords, slot, waited = ring.stage(block, atoms)
+            UPLOAD_STATS.count_chunk(b - a, 4 * coords.numel(), block.nbytes, waited)
+            with annotate("features.eval"):
+                features = self._evaluate(coords, indices)
+            ring.done_reading(slot)
+            part = features if then is None else then(features)
+            if b - a == n:
+                return part
+            if out is None:
+                out = part.new_empty((n,) + tuple(part.shape[1:]))
+            out[a:b] = part
+        return out
+
+    def _evaluate(self, coords: torch.Tensor, indices: _AtomIndices) -> torch.Tensor:
+        return evaluate_plan_chunk(
+            coords,
+            indices.dist_pairs,
+            self._dist_center_a,
+            self._dist_center_b,
+            indices.dihedral_quads,
+            self._dihedral_mode,
+            indices.coord_atoms,
+            self._coord_axes,
+            indices.center_atoms,
+            self._center_mask,
+            self._out_perm,
+            self._fit_reference,
+            self._fit_weights,
+            n_features=self._n_features,
+            has_centers=self._has_centers,
+            identity_layout=self._identity_layout,
+        )

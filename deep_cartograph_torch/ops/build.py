@@ -6,7 +6,8 @@ built at import: a kernel is built at its first launch, or all of them
 together by `build_all()` (one `nvcc` process per source, run in parallel).
 Host C++ sources (the XTC codec `io/csrc/xdrcodec.cpp`, the colvars text
 parser and formatter `io/csrc/colvars_io.cpp`, the prefetching DCD reader
-`io/csrc/dcdloader.cpp`, the batch dip test `stats/csrc/diptest.cpp`) are
+`io/csrc/dcdloader.cpp`, the batch dip test `stats/csrc/diptest.cpp`, the
+gather of the staged copy up `geom/csrc/stage_atoms.cpp`) are
 compiled by `g++` with OpenMP at first use through `load_host_library`,
 each into a library of its own; a failed build raises.
 
@@ -69,6 +70,46 @@ class KernelStats:
         """Count one call of the plain version."""
         with self._lock:
             self.plain_calls += 1
+
+
+@dataclass
+class UploadStats:
+    """Counters of the staged copy up of host frames
+    (`geom/kernels.py::PlanEvaluator`): `calls` staged, their `chunks` and
+    `frames`, the `bytes_sent` to the device and the `bytes_held` by the
+    caller's frames (the two differ when only the plan's atoms go up), and
+    the `slot_waits`, chunks that waited for a slot of the ring to come
+    free. Callers reset them (`reset()`, or a field to 0) around a region
+    they measure. The counts are taken under a lock: the mesh's worker
+    threads stage at once."""
+
+    calls: int = 0
+    chunks: int = 0
+    frames: int = 0
+    bytes_sent: int = 0
+    bytes_held: int = 0
+    slot_waits: int = 0
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
+
+    def count_chunk(self, frames: int, bytes_sent: int, bytes_held: int,
+                    waited: bool) -> None:
+        """Count one staged chunk."""
+        with self._lock:
+            self.chunks += 1
+            self.frames += frames
+            self.bytes_sent += bytes_sent
+            self.bytes_held += bytes_held
+            self.slot_waits += int(waited)
+
+    def count_call(self) -> None:
+        """Count one staged call."""
+        with self._lock:
+            self.calls += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.calls = self.chunks = self.frames = 0
+            self.bytes_sent = self.bytes_held = self.slot_waits = 0
 
 
 def _nvcc() -> str:

@@ -12,7 +12,7 @@ setup(
         "deep_cartograph_tpu": ["log_config/*.ini", "native/*.cpp",
                                 "default_config.yml"],
         "deep_cartograph_torch": ["ops/csrc/*.cu", "ops/csrc/*.cuh", "io/csrc/*.cpp",
-                                  "stats/csrc/*.cpp",
+                                  "stats/csrc/*.cpp", "geom/csrc/*.cpp",
                                   "stats/dip_null_table.npz", "log_config/*.ini",
                                   "default_config.yml"],
     },

@@ -696,3 +696,118 @@ def test_k2_on_a_mesh_launches_once_a_shard_and_matches_one_device(cuda):
                                   torch.as_tensor(samples, device="cuda"), 50.0)
     want = one.cpu().numpy() - np.log(len(samples))
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def _backbone_frames(folder, n_res=20, n_frames=3000, seed=2):
+    """A backbone of N, CA, C, O atoms a residue (PDB) with random-walk
+    frames, and labels that read the CA atoms alone: the distances of
+    residues three or more apart, sin and cos of every CA dihedral."""
+    import os
+
+    from deep_cartograph_torch.io.topology import Topology
+
+    rng = np.random.default_rng(seed)
+    n_atoms = 4 * n_res
+    base = np.stack([np.arange(n_atoms) * 0.95, np.sin(np.arange(n_atoms)),
+                     np.cos(np.arange(n_atoms))], 1) * 1.5
+    walk = np.cumsum(rng.normal(0, 0.02, (n_frames, n_atoms, 3)), 0)
+    coords = (base + walk + rng.normal(0, 0.1, walk.shape)).astype(np.float32)
+    pdb = os.path.join(folder, "backbone.pdb")
+    with open(pdb, "w") as fh:
+        for i, (x, y, z) in enumerate(coords[0]):
+            name, res = ("N", "CA", "C", "O")[i % 4], i // 4 + 1
+            fh.write(f"ATOM  {i + 1:>5}  {name:<3} ALA A{res:>4}    "
+                     f"{x:8.3f}{y:8.3f}{z:8.3f}{1.0:6.2f}{0.0:6.2f}           {name[0]}\n")
+        fh.write("END\n")
+    labels = [f"dist-@CA_{i}-@CA_{j}" for i in range(1, n_res + 1)
+              for j in range(i + 3, n_res + 1)]
+    labels += [f"{f}-@CA_{i}-@CA_{i + 1}-@CA_{i + 2}-@CA_{i + 3}"
+               for i in range(1, n_res - 2) for f in ("sin", "cos")]
+    return Topology.from_pdb(pdb), coords, labels
+
+
+@pytest.fixture
+def small_ring(monkeypatch):
+    """Slots of 256 frames of 20 atoms: a ring of 768 frames."""
+    from deep_cartograph_torch.geom import kernels
+
+    monkeypatch.setattr(kernels, "SLOT_BYTES", 256 * 20 * 12)
+    return 256
+
+
+def _staged_pipeline(top, labels):
+    from deep_cartograph_torch.deploy import FramesToCV, LinearProjection
+
+    n = len(labels)
+    rng = np.random.default_rng(4)
+    projection = LinearProjection(rng.normal(size=n), rng.uniform(0.5, 2.0, n),
+                                  rng.normal(size=(n, 2)) / np.sqrt(n), np.zeros(2),
+                                  np.ones(2))
+    return FramesToCV(projection, top, labels)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 3000])
+def test_staged_upload_matches_a_pageable_copy(cuda, tmp_path, small_ring, n):
+    """Host frames staged (the 20 CA atoms of 80, chunks of 256 frames, up
+    to four times round the ring) against the whole frames copied up
+    pageable and evaluated in one piece: features bit for bit, CVs within
+    1e-5, the counter at 240 bytes a frame."""
+    from deep_cartograph_torch.features.grammar import compile_plan
+    from deep_cartograph_torch.geom.kernels import UPLOAD_STATS, PlanEvaluator
+
+    top, coords, labels = _backbone_frames(str(tmp_path))
+    frames = coords[:n]
+    ev = PlanEvaluator(compile_plan(labels, top))
+    UPLOAD_STATS.reset()
+    got = ev.eval_raw(frames)
+    assert UPLOAD_STATS.chunks == -(-n // small_ring)
+    assert (UPLOAD_STATS.bytes_sent, UPLOAD_STATS.bytes_held) == (n * 240, n * 960)
+    want = ev.eval_raw(torch.as_tensor(frames).to(cuda))
+    assert torch.equal(got, want)
+    pipeline = _staged_pipeline(top, labels)
+    staged = pipeline(frames)
+    whole = pipeline(torch.as_tensor(frames).to(cuda))
+    np.testing.assert_allclose(staged, whole, atol=1e-5, rtol=0)
+
+
+def test_staged_calls_back_to_back_and_an_overwritten_array(cuda, tmp_path, small_ring):
+    """Two calls on different frames with nothing waited for between them,
+    and a caller that overwrites its array as soon as each call returns:
+    every result as if each call had run alone."""
+    from deep_cartograph_torch.features.grammar import compile_plan
+    from deep_cartograph_torch.geom.kernels import PlanEvaluator
+
+    top, coords, labels = _backbone_frames(str(tmp_path))
+    ev = PlanEvaluator(compile_plan(labels, top))
+    want = [ev.eval_raw(torch.as_tensor(coords[a:a + 1000]).to(cuda)) for a in (0, 1000)]
+    torch.cuda.synchronize()
+    buffer = coords[:1000].copy()
+    first = ev.eval_raw(buffer)
+    buffer[:] = np.nan
+    second = ev.eval_raw(coords[1000:2000])
+    buffer[:] = coords[2000:3000]
+    assert torch.equal(first, want[0]) and torch.equal(second, want[1])
+    pipeline = _staged_pipeline(top, labels)
+    cv_want = [pipeline(coords[a:a + 1000]) for a in (0, 1000)]
+    buffer = coords[:1000].copy()
+    cvs = [pipeline.eval_raw(buffer)]
+    buffer[:] = np.nan
+    cvs.append(pipeline.eval_raw(coords[1000:2000]))
+    for got, cv in zip(cvs, cv_want):
+        np.testing.assert_allclose(got.cpu().numpy(), cv, atol=1e-6, rtol=0)
+
+
+def test_a_staged_call_waits_for_the_card_only_at_its_copy_back(cuda, tmp_path, small_ring):
+    """Under `torch.cuda.set_sync_debug_mode("error")` from the first
+    gather to the copy back, a FramesToCV call four times round the ring
+    raises nowhere: the copies are asynchronous from pinned slots and a
+    slot is waited for on its event alone."""
+    top, coords, labels = _backbone_frames(str(tmp_path))
+    pipeline = _staged_pipeline(top, labels)
+    want = pipeline(coords)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cvs = pipeline.eval_raw(coords)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    np.testing.assert_allclose(cvs.cpu().numpy(), want, atol=1e-6, rtol=0)
