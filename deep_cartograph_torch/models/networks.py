@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deep_cartograph_torch.utils.profiling import annotate
+
 ACTIVATIONS: dict = {
     None: lambda x: x,
     "linear": lambda x: x,
@@ -340,16 +342,22 @@ class VAEStack(_Stack):
         """Per-sample (reconstruction MSE, KL) of the ELBO, each (T, B). The
         latent sample z = mean + exp(logvar / 2) eps draws eps from
         `reparam_noise` in training and validation alike; `train` only
-        switches dropout."""
-        xn = self.normalize_in(x)
-        h = self._hidden(params, xn, train, generators)
-        mean = dense_stack(params, h, "mean_nn")
-        logvar = dense_stack(params, h, "log_var_nn")
-        z = mean + torch.exp(0.5 * logvar) * reparam_noise(mean.shape, generators)
-        x_hat = feedforward_stack(params, z, train=train, generators=generators,
-                                  prefix="decoder/", **self.decoder_options)
-        recon = ((x_hat - xn) ** 2).mean(-1)
-        kl = -0.5 * (1 + logvar - mean ** 2 - torch.exp(logvar)).sum(-1)
+        switches dropout. Spans: `vae.encode` (norm_in, hidden stack,
+        heads), `vae.sample` (eps and z), `vae.decode`, `vae.elbo`
+        (reconstruction and KL)."""
+        with annotate("vae.encode"):
+            xn = self.normalize_in(x)
+            h = self._hidden(params, xn, train, generators)
+            mean = dense_stack(params, h, "mean_nn")
+            logvar = dense_stack(params, h, "log_var_nn")
+        with annotate("vae.sample"):
+            z = mean + torch.exp(0.5 * logvar) * reparam_noise(mean.shape, generators)
+        with annotate("vae.decode"):
+            x_hat = feedforward_stack(params, z, train=train, generators=generators,
+                                      prefix="decoder/", **self.decoder_options)
+        with annotate("vae.elbo"):
+            recon = ((x_hat - xn) ** 2).mean(-1)
+            kl = -0.5 * (1 + logvar - mean ** 2 - torch.exp(logvar)).sum(-1)
         return recon, kl
 
 

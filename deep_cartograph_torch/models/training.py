@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import logging
 import math
+import threading
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -332,6 +333,40 @@ class _Lane:
 STEP_SPAN = "trainer.step"
 
 
+@dataclass
+class TrainStats:
+    """Counters of the trainer (`Trainer.fit_ensemble`): the optimizer
+    `steps` it ran (an epoch's steps once, however many lanes ran them),
+    the `plateau_steps` among them whose KL weight beta had reached the
+    annealing's `max_beta`, and the `post_annealing_selections`, tries
+    whose returned model was chosen after the KL annealing. Callers reset
+    them (`reset()`, or a field to 0) around a region they measure. The
+    counts are taken under a lock: the mesh's worker threads may count at
+    once."""
+
+    steps: int = 0
+    plateau_steps: int = 0
+    post_annealing_selections: int = 0
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
+
+    def count_epoch(self, steps: int, beta: float, max_beta: Optional[float]) -> None:
+        """Count one epoch's `steps`, all at the KL weight `beta`."""
+        with self._lock:
+            self.steps += steps
+            self.plateau_steps += steps if max_beta is not None and beta == max_beta else 0
+
+    def count_post_annealing(self, tries: int) -> None:
+        with self._lock:
+            self.post_annealing_selections += tries
+
+    def reset(self) -> None:
+        with self._lock:
+            self.steps = self.plateau_steps = self.post_annealing_selections = 0
+
+
+TRAIN_STATS = TrainStats()
+
+
 class Trainer:
     """Seeded trainer over (dict of data arrays, loss function).
 
@@ -571,6 +606,8 @@ class Trainer:
                     ).cpu().numpy().astype(np.float64)
 
             ran = run_per_device(run_epoch, mesh, lanes)
+            TRAIN_STATS.count_epoch(steps, beta, None if cfg.kl_annealing is None
+                                    else cfg.kl_annealing.max_beta)
             if not validate:
                 continue
             aux_keys = ran[0][0]
@@ -648,6 +685,7 @@ class Trainer:
                 return {k: v[j].to(self.device, copy=True) for k, v in trees[li].items()}
 
             if cfg.post_annealing_checkpoint and post_has_best[t]:
+                TRAIN_STATS.count_post_annealing(1)
                 results.append(TrainResult(
                     take(post_best_params), float(post_best_score[t]),
                     metrics[t], int(post_best_epoch[t]), "best post-annealing",
