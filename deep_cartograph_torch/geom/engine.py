@@ -3,7 +3,10 @@
 The port of the JAX package's geom/engine.py: frames are decoded on the host
 in chunks, copied to the device, and every feature of every frame in the
 chunk is evaluated there (geom/kernels.py). Chunks keep their natural
-length: the kernels mask the ragged last chunk, so nothing is padded.
+length: the kernels mask the ragged last chunk, so nothing is padded. Each
+chunk's features come back through the featurizer's download ring (pinned
+slots, a copy stream) while the host decodes the next chunk, and go
+straight into the rows of their trajectory's matrix.
 
 The Featurizer shards the frames of every chunk over
 `parallel.mesh.mesh_for(device)` (`ShardedChunkEvaluator`; the device
@@ -16,18 +19,23 @@ first device.
 from __future__ import annotations
 
 import logging
+import mmap
+import threading
 import time
 from collections import deque
+from pathlib import Path
 from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from deep_cartograph_torch.features.grammar import compile_plan
+from deep_cartograph_torch.geom import kernels
 from deep_cartograph_torch.geom.kernels import PlanEvaluator
 from deep_cartograph_torch.io.topology import Topology
-from deep_cartograph_torch.io.traj import iter_frame_chunks
+from deep_cartograph_torch.io.traj import get_num_frames, iter_frame_chunks
 from deep_cartograph_torch.io.upload import resolve_upload_mode, upload_coords_sharded
+from deep_cartograph_torch.ops.build import DownloadStats
 from deep_cartograph_torch.parallel.mesh import Mesh, get_mesh, mesh_for, run_per_device, split
 from deep_cartograph_torch.parallel.sharding import all_gather
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
@@ -37,6 +45,19 @@ logger = logging.getLogger(__name__)
 
 # Soft budget for per-chunk intermediates on device (bytes).
 _CHUNK_BYTE_BUDGET = 1 << 30
+
+# A featurize call's timeout message: featurize_trajectory's, and that of
+# the streaming calls, which name the trajectory.
+_TIMEOUT_AFTER = ("Featurization exceeded the configured timeout of {timeout} s "
+                  "after {frames} frames.")
+_TIMEOUT_OF = "Featurization of {path} exceeded the configured timeout of {timeout} s."
+# Formats whose header gives the frame count, read before the pass. XTC and
+# TRR are not among them: their counts (`io/xtc.py`, `io/trr.py`) read the
+# whole file and walk its frames, a second read of it ahead of the decode.
+_COUNTED_FORMATS = (".dcd",)
+# Bytes of a trajectory's matrix mapped at a time ahead of the copies.
+MAP_STEP = 64 << 20
+DOWNLOAD_STATS = DownloadStats()
 
 
 def auto_chunk_size(requested: int, n_atoms: int, n_features: int) -> int:
@@ -74,6 +95,7 @@ class Featurizer:
         self.device = resolve_device(device)
         self._fit = (ref, weights) if self.plan.needs_fit else (None, None)
         self._evaluators: dict = {}
+        self._rings: dict = {}   # device -> _DownloadRing, made at first use
 
     @property
     def evaluator(self) -> "ShardedChunkEvaluator":
@@ -117,51 +139,9 @@ class Featurizer:
         The setting is read only where a caller passes "auto": a
         DC_TPU_UPLOAD set for a JAX run leaves the default exact.
         """
-        upload_mode = resolve_upload_mode(upload)
-        chunk = auto_chunk_size(
-            frame_chunk, self.topology.n_atoms, self.plan.n_features
-        )
-        evaluator = self.evaluator
-        outputs: List[torch.Tensor] = []
-        t0 = time.time()
-        n_frames = 0
-        for block in iter_frame_chunks(
-            trajectory_path, chunk, self.topology.source_path, stride=traj_stride
-        ):
-            if timeout is not None and time.time() - t0 > timeout:
-                raise TimeoutError(
-                    f"Featurization exceeded the configured timeout of "
-                    f"{timeout} s after {n_frames} frames."
-                )
-            n_frames += block.shape[0]
-            # The staged copy up (geom/kernels.py) returns once the chunk's
-            # atoms are in a pinned slot; its copy and kernels are only
-            # queued and run while the host decodes the next chunk. Outputs
-            # stay on the device until one download at the end. An int16
-            # upload quantizes the chunk on the host and dequantizes it on
-            # the device (io/upload.py). (The JAX package pads a short last
-            # chunk by repeating its last frame before quantizing: that
-            # moves no axis' minimum or maximum, so the unpadded chunk has
-            # the same codes.)
-            if upload_mode == "int16":
-                outputs.append(_eval_quantized(evaluator, block))
-            else:
-                outputs.append(evaluator.eval_raw(block))
-        if outputs:
-            result = torch.cat(outputs)
-            with annotate("transfer.d2h"):
-                result = result.cpu().numpy()
-        else:
-            result = np.zeros((0, self.plan.n_features), np.float32)
-        dt = time.time() - t0
-        logger.info(
-            "Featurized %d frames x %d features in %.2fs (%.0f frames/s)",
-            n_frames,
-            self.plan.n_features,
-            dt,
-            n_frames / max(dt, 1e-9),
-        )
-        return result
+        ((_, features),) = self._stream([trajectory_path], traj_stride, frame_chunk,
+                                        timeout, upload, _TIMEOUT_AFTER)
+        return features
 
     def featurize_trajectories(
         self,
@@ -188,97 +168,123 @@ class Featurizer:
         """Stream N same-topology trajectories through shared chunks: a chunk
         may span a trajectory seam, so only the batch's last chunk is short.
 
-        Yields (path, (n_frames_i, n_features) matrix) per trajectory as soon
-        as its last frame has been evaluated (delayed by at most
-        `pipeline_depth` chunks), so callers can persist each result as it
-        comes and memory stays bounded: at most `pipeline_depth` chunk
-        outputs live on the device, and host buffers hold one trajectory's
-        features plus one chunk. `timeout` (seconds) applies per trajectory.
+        Yields (path, (n_frames_i, n_features) matrix) per trajectory, in
+        order, once its last frame has been evaluated and copied back, so
+        callers can persist each result as it comes and memory stays
+        bounded: a chunk's features leave the device through the
+        featurizer's download ring (a chunk behind the one evaluated), and
+        the host holds the trajectories whose frames the chunks not yet
+        copied back hold, plus a chunk's frames. `timeout` (seconds)
+        applies per trajectory.
         """
+        yield from self._stream(trajectory_paths, traj_stride, frame_chunk, timeout,
+                                "float32", _TIMEOUT_OF)
+
+    def _stream(self, trajectory_paths: List[str], traj_stride: int, frame_chunk: int,
+                timeout: Optional[float], upload: str, timeout_text: str
+                ) -> Iterator[Tuple[str, np.ndarray]]:
+        """The chunk loop of both entry points. The reader's blocks are cut
+        into chunks of `chunk` frames across trajectory seams; a block that
+        is a whole chunk goes to the device as it comes, and only a chunk
+        made of several blocks' frames is assembled in `buf`. Each chunk's
+        features are sent down the download ring as soon as its work is
+        queued; the host takes them out of their slot into their
+        trajectory's rows once the next chunk is dispatched, so the copy
+        runs under the next chunk's decode and kernels."""
+        upload_mode = resolve_upload_mode(upload)
         chunk = auto_chunk_size(
             frame_chunk, self.topology.n_atoms, self.plan.n_features
         )
         n_feat = self.plan.n_features
-        pipeline_depth = 2
         evaluator = self.evaluator
-
-        buf = np.empty((chunk, self.topology.n_atoms, 3), np.float32)
+        # The ring is the call's while it runs: a call made meanwhile (an
+        # interleaved generator) makes a ring of its own.
+        ring = self._rings.pop(evaluator.device, None) or _DownloadRing(evaluator.device,
+                                                                        n_feat)
+        trajs: deque = deque()     # _Rows not yet yielded, in order
+        parts: List[np.ndarray] = []   # frames of the chunk being filled
         fill = 0
-        pending: deque = deque()   # device outputs awaiting download
-        host_parts: List[np.ndarray] = []
-        host_avail = 0             # frames currently in host_parts
+        buf: Optional[np.ndarray] = None
         dispatched = 0             # frames sent to the device so far
-        consumed = 0               # frames already emitted to trajectories
-        finished: deque = deque()  # (path, end_offset)
-        t_start = time.time()
 
-        def flush_oldest():
-            nonlocal host_avail
-            with annotate("transfer.d2h"):
-                part = pending.popleft().cpu().numpy()
-            host_parts.append(part)
-            host_avail += part.shape[0]
+        def sink(rows: torch.Tensor) -> None:
+            # Pieces come in order: their rows belong to the first
+            # trajectories not yet complete.
+            for t in trajs:
+                if not rows.shape[0]:
+                    return
+                room = rows.shape[0] if t.end is None else t.end - t.start - t.written
+                if room > 0:
+                    t.write(rows[:room])
+                    rows = rows[room:]
 
-        def dispatch():
-            nonlocal fill, dispatched
-            pending.append(evaluator.eval_raw(buf[:fill]))
+        def dispatch() -> None:
+            nonlocal buf, fill, dispatched
+            if len(parts) == 1:
+                frames = parts[0]
+            else:
+                if buf is None:
+                    buf = np.empty((chunk,) + parts[0].shape[1:], np.float32)
+                frames = np.concatenate(parts, out=buf[:fill])
+            # The staged copy up (geom/kernels.py) returns once the chunk's
+            # atoms are in a pinned slot; its copy and kernels are only
+            # queued. An int16 upload quantizes the chunk on the host and
+            # dequantizes it on the device (io/upload.py). (The JAX package
+            # pads a short last chunk by repeating its last frame before
+            # quantizing: that moves no axis' minimum or maximum, so the
+            # unpadded chunk has the same codes.)
+            if upload_mode == "int16":
+                features = _eval_quantized(evaluator, frames)
+            else:
+                features = evaluator.eval_raw(frames)
+            newest = ring.send(features, sink)
             dispatched += fill
+            parts.clear()
             fill = 0
-            while len(pending) > pipeline_depth:
-                flush_oldest()
-
-        def take(n: int) -> np.ndarray:
-            nonlocal host_avail, consumed
-            parts: List[np.ndarray] = []
-            need = n
-            while need:
-                head = host_parts[0]
-                if head.shape[0] <= need:
-                    parts.append(host_parts.pop(0))
-                    need -= parts[-1].shape[0]
-                else:
-                    parts.append(head[:need])
-                    host_parts[0] = head[need:]
-                    need = 0
-            host_avail -= n
-            consumed += n
-            if not parts:
-                return np.zeros((0, n_feat), np.float32)
-            return parts[0] if len(parts) == 1 else np.concatenate(parts)
+            while len(ring) > newest:
+                ring.take()
 
         def ready():
-            while finished and finished[0][1] <= dispatched:
-                path, end = finished.popleft()
-                while host_avail < end - consumed:
-                    flush_oldest()
-                yield path, take(end - consumed)
+            while trajs and trajs[0].end is not None and trajs[0].end <= dispatched:
+                t = trajs[0]
+                while t.start + t.written < t.end:
+                    ring.take()
+                trajs.popleft()
+                yield t.path, t.result()
 
+        t_start = time.time()
         offset = 0
-        for path in trajectory_paths:
-            t0 = time.time()
-            for block in iter_frame_chunks(
-                path, chunk, self.topology.source_path, stride=traj_stride
-            ):
-                if timeout is not None and time.time() - t0 > timeout:
-                    raise TimeoutError(
-                        f"Featurization of {path} exceeded the configured "
-                        f"timeout of {timeout} s."
-                    )
-                offset += block.shape[0]
-                pos = 0
-                while pos < block.shape[0]:
-                    n = min(chunk - fill, block.shape[0] - pos)
-                    buf[fill : fill + n] = block[pos : pos + n]
-                    fill += n
-                    pos += n
-                    if fill == chunk:
-                        dispatch()
-            finished.append((path, offset))
+        try:
+            for path in trajectory_paths:
+                t0 = time.time()
+                trajs.append(_Rows(path, offset, _frames_ahead(path, traj_stride), n_feat))
+                # Readers hand out blocks they never write again, so a block
+                # is held (not copied) until its chunk is dispatched.
+                for block in iter_frame_chunks(
+                    path, chunk, self.topology.source_path, stride=traj_stride
+                ):
+                    if timeout is not None and time.time() - t0 > timeout:
+                        raise TimeoutError(timeout_text.format(
+                            path=path, timeout=timeout, frames=offset - trajs[-1].start))
+                    offset += block.shape[0]
+                    pos = 0
+                    while pos < block.shape[0]:
+                        n = min(chunk - fill, block.shape[0] - pos)
+                        parts.append(block[pos : pos + n])
+                        fill += n
+                        pos += n
+                        if fill == chunk:
+                            dispatch()
+                    yield from ready()
+                trajs[-1].end = offset
+                yield from ready()
+            if fill:
+                dispatch()
             yield from ready()
-        if fill:
-            dispatch()
-        yield from ready()
-        if finished:
+        finally:
+            ring.discard()
+            self._rings[evaluator.device] = ring
+        if trajs:
             raise RuntimeError("trajectory frames unaccounted for")
         dt = time.time() - t_start
         logger.info(
@@ -297,6 +303,160 @@ def _eval_quantized(evaluator: "ShardedChunkEvaluator", block: np.ndarray) -> to
     on the host as one block, its codes sliced by frames over the mesh,
     each slice copied to its device and dequantized there, K1 per slice."""
     return evaluator.eval_shards(upload_coords_sharded(block, evaluator.mesh))
+
+
+def _frames_ahead(path: str, stride: int) -> Optional[int]:
+    """The frames a trajectory yields at `stride`, where its header gives
+    them (`io/traj.py::get_num_frames`, `_COUNTED_FORMATS`), else None."""
+    if Path(path).suffix.lower() not in _COUNTED_FORMATS:
+        return None
+    return -(-get_num_frames(path) // stride)
+
+
+class _MappedMatrix:
+    """A fresh (rows, cols) float32 matrix in memory of its own, which a
+    thread maps (`kernels.map_pages`) `MAP_STEP` bytes at a time from its
+    first row while the pass runs. Left to the copies that write it, a
+    fresh matrix faults its pages in one at a time, on the pass's critical
+    path; where faults are dear (a sandboxed kernel: PERF.md §6)
+    that takes longer than the pass's decode. Mapped ahead, in steps, the
+    copies find the pages there. Mapping a step replaces what it held, so
+    rows are handed out (`rows`) only once mapped."""
+
+    def __init__(self, rows: int, cols: int):
+        self.memory = mmap.mmap(-1, max(4 * rows * cols, 1), flags=mmap.MAP_PRIVATE)
+        self.array = np.frombuffer(self.memory, np.float32, rows * cols).reshape(rows, cols)
+        self._mapped = 0   # bytes mapped from the first row
+        self._cond = threading.Condition()
+        self._thread = threading.Thread(target=self._map, daemon=True)
+        self._thread.start()
+
+    def _map(self) -> None:
+        total, base = self.array.nbytes, self.array.ctypes.data
+        try:
+            for a in range(0, total, MAP_STEP):
+                b = min(a + MAP_STEP, total)
+                kernels.map_pages(base + a, b - a)   # refused: the copies fault them in
+                with self._cond:
+                    self._mapped = b
+                    self._cond.notify_all()
+        finally:
+            with self._cond:
+                self._mapped = total
+                self._cond.notify_all()
+
+    def rows(self, a: int, b: int) -> np.ndarray:
+        """Rows [a, b), once mapped."""
+        end = 4 * b * self.array.shape[1]
+        with self._cond:
+            self._cond.wait_for(lambda: self._mapped >= end)
+        return self.array[a:b]
+
+    def join(self) -> None:
+        self._thread.join()
+
+
+class _Rows:
+    """One trajectory's features on the host, written in order as the
+    download ring hands them over: into one matrix of the frame count known
+    ahead (`_MappedMatrix`), else (or beyond that count) into parts joined
+    once."""
+
+    def __init__(self, path: str, start: int, expected: Optional[int], n_features: int):
+        self.path, self.start = path, start
+        self.end: Optional[int] = None   # the first frame past it, once read
+        self.written = 0
+        self.matrix = _MappedMatrix(expected, n_features) if expected else None
+        self.n_features = n_features
+        self.parts: List[np.ndarray] = []
+
+    def write(self, rows: torch.Tensor) -> None:
+        rows = rows.contiguous()
+        n = rows.shape[0]
+        room = 0 if self.matrix is None else len(self.matrix.array) - self.written
+        fit = max(0, min(n, room))
+        if fit:
+            kernels.copy_rows(self.matrix.rows(self.written, self.written + fit), rows[:fit])
+        if fit < n:
+            part = np.empty((n - fit, self.n_features), np.float32)
+            kernels.copy_rows(part, rows[fit:])
+            self.parts.append(part)
+        self.written += n
+
+    def result(self) -> np.ndarray:
+        if self.matrix is None:
+            head = np.zeros((0, self.n_features), np.float32)
+        else:
+            self.matrix.join()
+            head = self.matrix.array[:self.written]
+        return np.concatenate([head] + self.parts) if self.parts else head
+
+
+class _DownloadRing:
+    """The slots featurized chunks come down through, taken in turn. On a
+    card: `RING_SLOTS` pinned host slots of `SLOT_BYTES` (`geom/kernels.py`)
+    and a copy stream; a chunk's copy waits for the work that made it, its
+    rows go a slot a piece, and a slot is written again only once the host
+    has taken the piece it holds. On the CPU: the features themselves, no
+    copy. The features' memory goes back to the allocator only once their
+    copy has run (`record_stream`)."""
+
+    def __init__(self, device: torch.device, n_features: int):
+        self.device = device
+        self.on_card = device.type == "cuda"
+        self.rows = max(1, kernels.SLOT_BYTES // (4 * max(n_features, 1)))
+        self.pending: deque = deque()   # (slot, host rows, sink), oldest first
+        self.next = 0
+        if self.on_card:
+            self.host = [torch.empty((self.rows, n_features), dtype=torch.float32,
+                                     pin_memory=True) for _ in range(kernels.RING_SLOTS)]
+            self.stream = torch.cuda.Stream(device)
+            self.copied = [torch.cuda.Event() for _ in range(kernels.RING_SLOTS)]
+
+    def __len__(self) -> int:
+        return len(self.pending)
+
+    def send(self, features: torch.Tensor, sink: Callable[[torch.Tensor], None]) -> int:
+        """Queue the copy of `features`' rows, a slot a piece, each piece
+        handed to `sink` when taken; a slot still holding a piece is taken
+        first. Returns the pieces."""
+        n = features.shape[0]
+        if self.on_card:
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+            features.record_stream(self.stream)
+        pieces = 0
+        for a in range(0, n, self.rows):
+            b = min(a + self.rows, n)
+            if len(self.pending) == kernels.RING_SLOTS:
+                self.take()
+            k = self.next
+            self.next = (k + 1) % kernels.RING_SLOTS
+            if self.on_card:
+                host = self.host[k][:b - a]
+                with torch.cuda.stream(self.stream):
+                    host.copy_(features[a:b], non_blocking=True)
+                self.copied[k].record(self.stream)
+            else:
+                host = features[a:b]
+            self.pending.append((k, host, sink))
+            pieces += 1
+        DOWNLOAD_STATS.count_chunk(4 * features.numel(), pieces)
+        return pieces
+
+    def take(self) -> None:
+        """Hand the oldest piece to its sink, once its copy has run."""
+        k, host, sink = self.pending.popleft()
+        with annotate("transfer.d2h"):
+            waited = self.on_card and not self.copied[k].query()
+            if waited:
+                self.copied[k].synchronize()
+            sink(host)
+        DOWNLOAD_STATS.count_take(waited)
+
+    def discard(self) -> None:
+        """Forget the pieces not taken (an abandoned call's). A later copy
+        into their slots runs after theirs on the ring's stream."""
+        self.pending.clear()
 
 
 class ShardedChunkEvaluator:

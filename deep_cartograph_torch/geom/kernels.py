@@ -253,6 +253,11 @@ RING_SLOTS = 3
 # evaluators staging at once (a mesh's workers): a featurize block of 2,048
 # frames of 80 atoms takes 2 threads, a full slot every thread of its share.
 GATHER_GRAIN = 1 << 18
+# The copy of a chunk's features out of their download slot
+# (`geom/engine.py`) takes a thread for each GATHER_GRAIN floats, at most
+# half the cores: the rest are left to the threads that run beside it, the
+# DCD reader's prefetch thread and the thread that maps the matrix ahead. On
+# an 8-core H100 host 4 threads copied as fast as 5, 6 or 7 (PERF.md §6).
 UPLOAD_STATS = UploadStats()
 _STAGE_SOURCE = Path(__file__).resolve().parent / "csrc" / "stage_atoms.cpp"
 # Calls inside a staged loop now, in any evaluator: the host's cores are the
@@ -261,11 +266,22 @@ _staging_calls = 0
 _staging_lock = threading.Lock()
 
 
+def _cores() -> int:
+    """The host cores this process may run on."""
+    cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else os.cpu_count()
+    return cores or 1
+
+
 def _gather_team(floats: int) -> int:
     """Host threads for a gather of `floats` floats (`GATHER_GRAIN`)."""
-    cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else os.cpu_count()
-    share = max(1, (cores or 1) - 1) // max(1, _staging_calls)
+    share = max(1, _cores() - 1) // max(1, _staging_calls)
     return max(1, min(-(-floats // GATHER_GRAIN), share))
+
+
+def _copy_team(floats: int) -> int:
+    """Host threads for a copy of `floats` floats out of a download slot:
+    one a `GATHER_GRAIN`, at most half the cores."""
+    return max(1, min(-(-floats // GATHER_GRAIN), _cores() // 2))
 
 
 def stage_atoms(frames: np.ndarray, atoms: Optional[np.ndarray], out: torch.Tensor,
@@ -293,6 +309,40 @@ def stage_atoms(frames: np.ndarray, atoms: Optional[np.ndarray], out: torch.Tens
         raise ValueError(f"stage_atoms needs C-ordered int64 atoms in [0, {n_atoms})")
     fn(frames.ctypes.data, n, n_atoms, None if atoms is None else atoms.ctypes.data,
        width, out.data_ptr(), max(1, int(threads)))
+
+
+def copy_rows(dst: np.ndarray, src: torch.Tensor) -> None:
+    """Copy `src`, a contiguous float32 host tensor, into `dst`, a C-ordered
+    float32 array of its shape, on `_copy_team` host threads
+    (`geom/csrc/stage_atoms.cpp`)."""
+    if (dst.dtype != np.float32 or not dst.flags.c_contiguous or not dst.flags.writeable
+            or src.dtype != torch.float32 or src.device.type != "cpu"
+            or not src.is_contiguous() or tuple(src.shape) != dst.shape):
+        raise ValueError("copy_rows needs a contiguous float32 host tensor and a "
+                         "writeable C-ordered float32 array of its shape")
+    lib = load_host_library(_STAGE_SOURCE)
+    fn = lib.copy_floats
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
+        fn.restype = None
+    if dst.size:
+        fn(src.data_ptr(), dst.ctypes.data, dst.size, _copy_team(dst.size))
+
+
+def map_pages(address: int, nbytes: int) -> int:
+    """Replace the pages of host memory from `address` (on a page boundary)
+    over `nbytes`, rounded up to whole pages, by fresh zero pages mapped now
+    (`mmap(MAP_FIXED | MAP_POPULATE)`, `geom/csrc/stage_atoms.cpp`): what
+    they held is lost, so only over a private anonymous mapping of the
+    caller's own that holds nothing yet. Copies into them then take no page
+    faults. Returns 0 or the errno of the refusal. Releases the GIL while
+    it runs."""
+    lib = load_host_library(_STAGE_SOURCE)
+    fn = lib.map_pages
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        fn.restype = ctypes.c_int
+    return fn(address, nbytes)
 
 
 @contextmanager

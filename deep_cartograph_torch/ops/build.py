@@ -7,7 +7,8 @@ together by `build_all()` (one `nvcc` process per source, run in parallel).
 Host C++ sources (the XTC codec `io/csrc/xdrcodec.cpp`, the colvars text
 parser and formatter `io/csrc/colvars_io.cpp`, the prefetching DCD reader
 `io/csrc/dcdloader.cpp`, the batch dip test `stats/csrc/diptest.cpp`, the
-gather of the staged copy up `geom/csrc/stage_atoms.cpp`) are
+gather of the staged copy up, and the row copy and page mapping of the copy
+back, `geom/csrc/stage_atoms.cpp`) are
 compiled by `g++` with OpenMP at first use through `load_host_library`,
 each into a library of its own; a failed build raises.
 
@@ -110,6 +111,38 @@ class UploadStats:
         with self._lock:
             self.calls = self.chunks = self.frames = 0
             self.bytes_sent = self.bytes_held = self.slot_waits = 0
+
+
+@dataclass
+class DownloadStats:
+    """Counters of the copy back of featurized chunks
+    (`geom/engine.py::Featurizer`'s download ring): the `chunks` sent down
+    and their `bytes`, the `pieces` they took (a slot each) and the
+    `slot_waits`, pieces whose copy had not completed when the host came
+    to take their slot. Callers reset them (`reset()`, or a field to 0)
+    around a region they measure. The counts are taken under a lock."""
+
+    chunks: int = 0
+    bytes: int = 0
+    pieces: int = 0
+    slot_waits: int = 0
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
+
+    def count_chunk(self, nbytes: int, pieces: int) -> None:
+        """Count one chunk sent down in `pieces` pieces."""
+        with self._lock:
+            self.chunks += 1
+            self.bytes += nbytes
+            self.pieces += pieces
+
+    def count_take(self, waited: bool) -> None:
+        """Count one piece taken out of its slot."""
+        with self._lock:
+            self.slot_waits += int(waited)
+
+    def reset(self) -> None:
+        with self._lock:
+            self.chunks = self.bytes = self.pieces = self.slot_waits = 0
 
 
 def _nvcc() -> str:
