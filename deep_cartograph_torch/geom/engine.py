@@ -4,9 +4,9 @@ The port of the JAX package's geom/engine.py: frames are decoded on the host
 in chunks, copied to the device, and every feature of every frame in the
 chunk is evaluated there (geom/kernels.py). Chunks keep their natural
 length: the kernels mask the ragged last chunk, so nothing is padded. Each
-chunk's features come back through the featurizer's download ring (pinned
-slots, a copy stream) while the host decodes the next chunk, and go
-straight into the rows of their trajectory's matrix.
+chunk's features come back through the featurizer's download ring
+(geom/transport.py) while the host decodes the next chunk, and go straight
+into the rows of their trajectory's matrix.
 
 The Featurizer shards the frames of every chunk over
 `parallel.mesh.mesh_for(device)` (`ShardedChunkEvaluator`; the device
@@ -19,8 +19,6 @@ first device.
 from __future__ import annotations
 
 import logging
-import mmap
-import threading
 import time
 from collections import deque
 from pathlib import Path
@@ -30,12 +28,13 @@ import numpy as np
 import torch
 
 from deep_cartograph_torch.features.grammar import compile_plan
-from deep_cartograph_torch.geom import kernels
 from deep_cartograph_torch.geom.kernels import PlanEvaluator
+# DOWNLOAD_STATS is read here, as `geom.engine.DOWNLOAD_STATS`, by the benchmark.
+from deep_cartograph_torch.geom.transport import (DOWNLOAD_STATS, DownloadRing,  # noqa: F401
+                                                  MappedMatrix, copy_rows)
 from deep_cartograph_torch.io.topology import Topology
 from deep_cartograph_torch.io.traj import get_num_frames, iter_frame_chunks
-from deep_cartograph_torch.io.upload import resolve_upload_mode, upload_coords_sharded
-from deep_cartograph_torch.ops.build import DownloadStats
+from deep_cartograph_torch.io.upload import UPLOAD_MODES, upload_coords_sharded
 from deep_cartograph_torch.parallel.mesh import Mesh, get_mesh, mesh_for, run_per_device, split
 from deep_cartograph_torch.parallel.sharding import all_gather
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
@@ -55,9 +54,6 @@ _TIMEOUT_OF = "Featurization of {path} exceeded the configured timeout of {timeo
 # TRR are not among them: their counts (`io/xtc.py`, `io/trr.py`) read the
 # whole file and walk its frames, a second read of it ahead of the decode.
 _COUNTED_FORMATS = (".dcd",)
-# Bytes of a trajectory's matrix mapped at a time ahead of the copies.
-MAP_STEP = 64 << 20
-DOWNLOAD_STATS = DownloadStats()
 
 
 def auto_chunk_size(requested: int, n_atoms: int, n_features: int) -> int:
@@ -95,7 +91,7 @@ class Featurizer:
         self.device = resolve_device(device)
         self._fit = (ref, weights) if self.plan.needs_fit else (None, None)
         self._evaluators: dict = {}
-        self._rings: dict = {}   # device -> _DownloadRing, made at first use
+        self._rings: dict = {}   # device -> DownloadRing, made at first use
 
     @property
     def evaluator(self) -> "ShardedChunkEvaluator":
@@ -134,10 +130,8 @@ class Featurizer:
         Returns the (n_frames, n_features) matrix (nm / radians). `timeout`
         (seconds) bounds the wall clock like the reference's PLUMED
         subprocess timeout. `upload` picks the host-to-device transport:
-        "float32" (exact, the default), "int16" (fixed point, half the
-        bytes, io/upload.py) or "auto" (DC_TPU_UPLOAD, float32 when unset).
-        The setting is read only where a caller passes "auto": a
-        DC_TPU_UPLOAD set for a JAX run leaves the default exact.
+        "float32" (exact, the default) or "int16" (fixed point, half the
+        bytes, io/upload.py).
         """
         ((_, features),) = self._stream([trajectory_path], traj_stride, frame_chunk,
                                         timeout, upload, _TIMEOUT_AFTER)
@@ -191,7 +185,8 @@ class Featurizer:
         queued; the host takes them out of their slot into their
         trajectory's rows once the next chunk is dispatched, so the copy
         runs under the next chunk's decode and kernels."""
-        upload_mode = resolve_upload_mode(upload)
+        if upload not in UPLOAD_MODES:
+            raise ValueError(f"unknown upload mode {upload!r} (int16|float32)")
         chunk = auto_chunk_size(
             frame_chunk, self.topology.n_atoms, self.plan.n_features
         )
@@ -199,8 +194,7 @@ class Featurizer:
         evaluator = self.evaluator
         # The ring is the call's while it runs: a call made meanwhile (an
         # interleaved generator) makes a ring of its own.
-        ring = self._rings.pop(evaluator.device, None) or _DownloadRing(evaluator.device,
-                                                                        n_feat)
+        ring = self._rings.pop(evaluator.device, None) or DownloadRing(evaluator.device, n_feat)
         trajs: deque = deque()     # _Rows not yet yielded, in order
         parts: List[np.ndarray] = []   # frames of the chunk being filled
         fill = 0
@@ -226,14 +220,14 @@ class Featurizer:
                 if buf is None:
                     buf = np.empty((chunk,) + parts[0].shape[1:], np.float32)
                 frames = np.concatenate(parts, out=buf[:fill])
-            # The staged copy up (geom/kernels.py) returns once the chunk's
+            # The staged copy up (geom/transport.py) returns once the chunk's
             # atoms are in a pinned slot; its copy and kernels are only
             # queued. An int16 upload quantizes the chunk on the host and
             # dequantizes it on the device (io/upload.py). (The JAX package
             # pads a short last chunk by repeating its last frame before
             # quantizing: that moves no axis' minimum or maximum, so the
             # unpadded chunk has the same codes.)
-            if upload_mode == "int16":
+            if upload == "int16":
                 features = _eval_quantized(evaluator, frames)
             else:
                 features = evaluator.eval_raw(frames)
@@ -313,60 +307,17 @@ def _frames_ahead(path: str, stride: int) -> Optional[int]:
     return -(-get_num_frames(path) // stride)
 
 
-class _MappedMatrix:
-    """A fresh (rows, cols) float32 matrix in memory of its own, which a
-    thread maps (`kernels.map_pages`) `MAP_STEP` bytes at a time from its
-    first row while the pass runs. Left to the copies that write it, a
-    fresh matrix faults its pages in one at a time, on the pass's critical
-    path; where faults are dear (a sandboxed kernel: PERF.md §6)
-    that takes longer than the pass's decode. Mapped ahead, in steps, the
-    copies find the pages there. Mapping a step replaces what it held, so
-    rows are handed out (`rows`) only once mapped."""
-
-    def __init__(self, rows: int, cols: int):
-        self.memory = mmap.mmap(-1, max(4 * rows * cols, 1), flags=mmap.MAP_PRIVATE)
-        self.array = np.frombuffer(self.memory, np.float32, rows * cols).reshape(rows, cols)
-        self._mapped = 0   # bytes mapped from the first row
-        self._cond = threading.Condition()
-        self._thread = threading.Thread(target=self._map, daemon=True)
-        self._thread.start()
-
-    def _map(self) -> None:
-        total, base = self.array.nbytes, self.array.ctypes.data
-        try:
-            for a in range(0, total, MAP_STEP):
-                b = min(a + MAP_STEP, total)
-                kernels.map_pages(base + a, b - a)   # refused: the copies fault them in
-                with self._cond:
-                    self._mapped = b
-                    self._cond.notify_all()
-        finally:
-            with self._cond:
-                self._mapped = total
-                self._cond.notify_all()
-
-    def rows(self, a: int, b: int) -> np.ndarray:
-        """Rows [a, b), once mapped."""
-        end = 4 * b * self.array.shape[1]
-        with self._cond:
-            self._cond.wait_for(lambda: self._mapped >= end)
-        return self.array[a:b]
-
-    def join(self) -> None:
-        self._thread.join()
-
-
 class _Rows:
     """One trajectory's features on the host, written in order as the
     download ring hands them over: into one matrix of the frame count known
-    ahead (`_MappedMatrix`), else (or beyond that count) into parts joined
+    ahead (`MappedMatrix`), else (or beyond that count) into parts joined
     once."""
 
     def __init__(self, path: str, start: int, expected: Optional[int], n_features: int):
         self.path, self.start = path, start
         self.end: Optional[int] = None   # the first frame past it, once read
         self.written = 0
-        self.matrix = _MappedMatrix(expected, n_features) if expected else None
+        self.matrix = MappedMatrix(expected, n_features) if expected else None
         self.n_features = n_features
         self.parts: List[np.ndarray] = []
 
@@ -376,10 +327,10 @@ class _Rows:
         room = 0 if self.matrix is None else len(self.matrix.array) - self.written
         fit = max(0, min(n, room))
         if fit:
-            kernels.copy_rows(self.matrix.rows(self.written, self.written + fit), rows[:fit])
+            copy_rows(self.matrix.rows(self.written, self.written + fit), rows[:fit])
         if fit < n:
             part = np.empty((n - fit, self.n_features), np.float32)
-            kernels.copy_rows(part, rows[fit:])
+            copy_rows(part, rows[fit:])
             self.parts.append(part)
         self.written += n
 
@@ -390,73 +341,6 @@ class _Rows:
             self.matrix.join()
             head = self.matrix.array[:self.written]
         return np.concatenate([head] + self.parts) if self.parts else head
-
-
-class _DownloadRing:
-    """The slots featurized chunks come down through, taken in turn. On a
-    card: `RING_SLOTS` pinned host slots of `SLOT_BYTES` (`geom/kernels.py`)
-    and a copy stream; a chunk's copy waits for the work that made it, its
-    rows go a slot a piece, and a slot is written again only once the host
-    has taken the piece it holds. On the CPU: the features themselves, no
-    copy. The features' memory goes back to the allocator only once their
-    copy has run (`record_stream`)."""
-
-    def __init__(self, device: torch.device, n_features: int):
-        self.device = device
-        self.on_card = device.type == "cuda"
-        self.rows = max(1, kernels.SLOT_BYTES // (4 * max(n_features, 1)))
-        self.pending: deque = deque()   # (slot, host rows, sink), oldest first
-        self.next = 0
-        if self.on_card:
-            self.host = [torch.empty((self.rows, n_features), dtype=torch.float32,
-                                     pin_memory=True) for _ in range(kernels.RING_SLOTS)]
-            self.stream = torch.cuda.Stream(device)
-            self.copied = [torch.cuda.Event() for _ in range(kernels.RING_SLOTS)]
-
-    def __len__(self) -> int:
-        return len(self.pending)
-
-    def send(self, features: torch.Tensor, sink: Callable[[torch.Tensor], None]) -> int:
-        """Queue the copy of `features`' rows, a slot a piece, each piece
-        handed to `sink` when taken; a slot still holding a piece is taken
-        first. Returns the pieces."""
-        n = features.shape[0]
-        if self.on_card:
-            self.stream.wait_stream(torch.cuda.current_stream(self.device))
-            features.record_stream(self.stream)
-        pieces = 0
-        for a in range(0, n, self.rows):
-            b = min(a + self.rows, n)
-            if len(self.pending) == kernels.RING_SLOTS:
-                self.take()
-            k = self.next
-            self.next = (k + 1) % kernels.RING_SLOTS
-            if self.on_card:
-                host = self.host[k][:b - a]
-                with torch.cuda.stream(self.stream):
-                    host.copy_(features[a:b], non_blocking=True)
-                self.copied[k].record(self.stream)
-            else:
-                host = features[a:b]
-            self.pending.append((k, host, sink))
-            pieces += 1
-        DOWNLOAD_STATS.count_chunk(4 * features.numel(), pieces)
-        return pieces
-
-    def take(self) -> None:
-        """Hand the oldest piece to its sink, once its copy has run."""
-        k, host, sink = self.pending.popleft()
-        with annotate("transfer.d2h"):
-            waited = self.on_card and not self.copied[k].query()
-            if waited:
-                self.copied[k].synchronize()
-            sink(host)
-        DOWNLOAD_STATS.count_take(waited)
-
-    def discard(self) -> None:
-        """Forget the pieces not taken (an abandoned call's). A later copy
-        into their slots runs after theirs on the ring's stream."""
-        self.pending.clear()
 
 
 class ShardedChunkEvaluator:

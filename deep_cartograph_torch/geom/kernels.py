@@ -5,9 +5,9 @@ A chunk of frames (C, A, 3) in Angstroms is uploaded once and every feature
 of every frame is evaluated on the device: distances through kernel K1
 (ops/pair_distances.py), dihedrals, centers and the Kabsch fit as plain
 PyTorch ops. Host frames go up staged (`PlanEvaluator.eval_raw`): the
-plan's atoms alone, gathered on host threads (csrc/stage_atoms.cpp) into
-a ring of pinned slots and copied up a chunk a slot while the device works
-on the chunk before; `UPLOAD_STATS` counts what went up.
+plan's atoms alone, gathered on host threads into a ring of pinned slots
+and copied up a chunk a slot while the device works on the chunk before
+(geom/transport.py); `UPLOAD_STATS` counts what went up.
 
 Unit conventions match PLUMED colvars output: distances and coordinates in
 nm, dihedral angles in radians (IUPAC sign).
@@ -15,17 +15,14 @@ nm, dihedral angles in radians (IUPAC sign).
 
 from __future__ import annotations
 
-import ctypes
-import os
 import threading
-from contextlib import contextmanager
-from pathlib import Path
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from deep_cartograph_torch.ops.build import UploadStats, load_host_library
+from deep_cartograph_torch.geom import transport
+from deep_cartograph_torch.geom.transport import UPLOAD_STATS, UploadRing, staging
 from deep_cartograph_torch.ops.pair_distances import (
     ANGSTROM_TO_NM,
     pair_distances as _pair_distances_kernel,
@@ -238,181 +235,8 @@ def evaluate_plan_chunk(
 
 
 # ---------------------------------------------------------------------------
-# The staged copy up of host frames
+# A plan's evaluator, fed by the staged copy up of host frames (geom/transport.py)
 # ---------------------------------------------------------------------------
-
-# Host frames go to the device a chunk at a time through a ring of
-# RING_SLOTS slots of SLOT_BYTES each (pinned host memory and its device
-# twin on a card, host memory alone on the CPU), which every evaluator
-# allocates at its first call of host frames and keeps.
-SLOT_BYTES = 32 << 20
-RING_SLOTS = 3
-# A chunk's gather takes a host thread for each GATHER_GRAIN floats it stages
-# (1 MiB of a slot), at most the cores but one (left to the threads that run
-# beside it, such as the DCD reader's prefetch thread), split among the
-# evaluators staging at once (a mesh's workers): a featurize block of 2,048
-# frames of 80 atoms takes 2 threads, a full slot every thread of its share.
-GATHER_GRAIN = 1 << 18
-# The copy of a chunk's features out of their download slot
-# (`geom/engine.py`) takes a thread for each GATHER_GRAIN floats, at most
-# half the cores: the rest are left to the threads that run beside it, the
-# DCD reader's prefetch thread and the thread that maps the matrix ahead. On
-# an 8-core H100 host 4 threads copied as fast as 5, 6 or 7 (PERF.md §6).
-UPLOAD_STATS = UploadStats()
-_STAGE_SOURCE = Path(__file__).resolve().parent / "csrc" / "stage_atoms.cpp"
-# Calls inside a staged loop now, in any evaluator: the host's cores are the
-# process's, so the count is too.
-_staging_calls = 0
-_staging_lock = threading.Lock()
-
-
-def _cores() -> int:
-    """The host cores this process may run on."""
-    cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else os.cpu_count()
-    return cores or 1
-
-
-def _gather_team(floats: int) -> int:
-    """Host threads for a gather of `floats` floats (`GATHER_GRAIN`)."""
-    share = max(1, _cores() - 1) // max(1, _staging_calls)
-    return max(1, min(-(-floats // GATHER_GRAIN), share))
-
-
-def _copy_team(floats: int) -> int:
-    """Host threads for a copy of `floats` floats out of a download slot:
-    one a `GATHER_GRAIN`, at most half the cores."""
-    return max(1, min(-(-floats // GATHER_GRAIN), _cores() // 2))
-
-
-def stage_atoms(frames: np.ndarray, atoms: Optional[np.ndarray], out: torch.Tensor,
-                threads: int = 1) -> None:
-    """Copy the `atoms` (int64 indices; every atom if None) of each frame of
-    `frames`, a C-ordered float32 (n, A, 3) array, into `out`, a contiguous
-    float32 host tensor of n * len(atoms) * 3 (or n * A * 3) elements, on
-    `threads` host threads (`geom/csrc/stage_atoms.cpp`)."""
-    lib = load_host_library(_STAGE_SOURCE)
-    fn = lib.stage_atoms
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int]
-        fn.restype = None
-    n, n_atoms = frames.shape[:2]
-    width = n_atoms if atoms is None else len(atoms)
-    if (frames.ndim != 3 or frames.shape[2] != 3 or frames.dtype != np.float32
-            or not frames.flags.c_contiguous
-            or out.dtype != torch.float32 or out.device.type != "cpu"
-            or not out.is_contiguous() or out.numel() != n * width * 3):
-        raise ValueError("stage_atoms needs C-ordered float32 (n, A, 3) frames and a "
-                         "contiguous float32 host tensor of their staged size")
-    if atoms is not None and (atoms.dtype != np.int64 or not atoms.flags.c_contiguous
-                              or (width and not 0 <= atoms.min() <= atoms.max() < n_atoms)):
-        raise ValueError(f"stage_atoms needs C-ordered int64 atoms in [0, {n_atoms})")
-    fn(frames.ctypes.data, n, n_atoms, None if atoms is None else atoms.ctypes.data,
-       width, out.data_ptr(), max(1, int(threads)))
-
-
-def copy_rows(dst: np.ndarray, src: torch.Tensor) -> None:
-    """Copy `src`, a contiguous float32 host tensor, into `dst`, a C-ordered
-    float32 array of its shape, on `_copy_team` host threads
-    (`geom/csrc/stage_atoms.cpp`)."""
-    if (dst.dtype != np.float32 or not dst.flags.c_contiguous or not dst.flags.writeable
-            or src.dtype != torch.float32 or src.device.type != "cpu"
-            or not src.is_contiguous() or tuple(src.shape) != dst.shape):
-        raise ValueError("copy_rows needs a contiguous float32 host tensor and a "
-                         "writeable C-ordered float32 array of its shape")
-    lib = load_host_library(_STAGE_SOURCE)
-    fn = lib.copy_floats
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
-        fn.restype = None
-    if dst.size:
-        fn(src.data_ptr(), dst.ctypes.data, dst.size, _copy_team(dst.size))
-
-
-def map_pages(address: int, nbytes: int) -> int:
-    """Replace the pages of host memory from `address` (on a page boundary)
-    over `nbytes`, rounded up to whole pages, by fresh zero pages mapped now
-    (`mmap(MAP_FIXED | MAP_POPULATE)`, `geom/csrc/stage_atoms.cpp`): what
-    they held is lost, so only over a private anonymous mapping of the
-    caller's own that holds nothing yet. Copies into them then take no page
-    faults. Returns 0 or the errno of the refusal. Releases the GIL while
-    it runs."""
-    lib = load_host_library(_STAGE_SOURCE)
-    fn = lib.map_pages
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64]
-        fn.restype = ctypes.c_int
-    return fn(address, nbytes)
-
-
-@contextmanager
-def _staging():
-    """Count the calls staging at once, for `_gather_team`."""
-    global _staging_calls
-    with _staging_lock:
-        _staging_calls += 1
-    try:
-        yield
-    finally:
-        with _staging_lock:
-            _staging_calls -= 1
-
-
-class _StagingRing:
-    """The slots a call's chunks go up through, taken in turn. On a card:
-    pinned host slots, their device twins and a copy stream; a host slot is
-    written only once its last copy has run (`copied`), a device slot only
-    once the work that read it has run (`read`), and the current stream
-    waits for a chunk's copy before its work. On the CPU: host slots, which
-    the work reads where they are."""
-
-    def __init__(self, device: torch.device, floats: int):
-        self.device, self.floats = device, floats
-        self.on_card = device.type == "cuda"
-        self.host = [torch.empty(floats, dtype=torch.float32, pin_memory=self.on_card)
-                     for _ in range(RING_SLOTS)]
-        self.next = 0
-        if self.on_card:
-            self.stream = torch.cuda.Stream(device)
-            self.dev = [torch.empty(floats, dtype=torch.float32, device=device)
-                        for _ in range(RING_SLOTS)]
-            for slot in self.dev:   # freed only once the copies queued on it ran
-                slot.record_stream(self.stream)
-            self.copied = [torch.cuda.Event() for _ in range(RING_SLOTS)]
-            self.read = [torch.cuda.Event() for _ in range(RING_SLOTS)]
-
-    def stage(self, frames: np.ndarray, atoms: Optional[np.ndarray]
-              ) -> Tuple[torch.Tensor, int, bool]:
-        """`frames`' `atoms` into the next slot and, on a card, copied up
-        from it: (the (n, width, 3) frames where the work reads them, the
-        slot, whether the slot had to be waited for)."""
-        k = self.next
-        self.next = (k + 1) % RING_SLOTS
-        n = frames.shape[0]
-        width = frames.shape[1] if atoms is None else len(atoms)
-        size = n * width * 3
-        waited = False
-        if self.on_card and not self.copied[k].query():
-            waited = True
-            self.copied[k].synchronize()
-        host = self.host[k][:size]
-        stage_atoms(frames, atoms, host, _gather_team(size))
-        host = host.view(n, width, 3)
-        if not self.on_card:
-            return host, k, waited
-        dev = self.dev[k][:size].view(n, width, 3)
-        self.stream.wait_event(self.read[k])
-        with torch.cuda.stream(self.stream):
-            dev.copy_(host, non_blocking=True)
-        self.copied[k].record(self.stream)
-        torch.cuda.current_stream(self.device).wait_event(self.copied[k])
-        return dev, k, waited
-
-    def done_reading(self, k: int) -> None:
-        """The work that reads slot `k` is queued: the slot's next copy waits
-        for it."""
-        if self.on_card:
-            self.read[k].record(torch.cuda.current_stream(self.device))
 
 
 class _AtomIndices(NamedTuple):
@@ -433,9 +257,9 @@ class PlanEvaluator:
 
     Host frames go to the device staged (`eval_raw`): only the atoms the
     plan reads, gathered on host threads into the slots of the evaluator's
-    ring (`RING_SLOTS` of `SLOT_BYTES`, pinned on a card) and copied up a
-    chunk a slot on a stream of their own, while the device works on the
-    chunk before. Frames already on a device are used as they are.
+    ring (`geom/transport.py::UploadRing`) and copied up a chunk a slot on
+    a stream of their own, while the device works on the chunk before.
+    Frames already on a device are used as they are.
     """
 
     def __init__(
@@ -443,23 +267,20 @@ class PlanEvaluator:
         plan,
         fit_reference: Optional[np.ndarray] = None,
         fit_weights: Optional[np.ndarray] = None,
-        gather_strategy: str = "auto",
         device: DeviceLike = None,
     ):
         """`device`: None means CUDA (raises without a card); pass "cpu" to
         run the plain PyTorch versions on the host."""
-        if gather_strategy not in ("auto", "matmul", "gather"):
-            raise ValueError(f"Unknown gather_strategy: {gather_strategy!r}")
         self.plan = plan
         self.device = resolve_device(device)
-        self._ring: Optional[_StagingRing] = None
+        self._ring: Optional[UploadRing] = None
         self._ring_lock = threading.Lock()
-        self._build(plan, fit_reference, fit_weights, gather_strategy)
+        self._build(plan, fit_reference, fit_weights)
 
     def _tensor(self, array, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(array), dtype=dtype, device=self.device)
 
-    def _build(self, plan, fit_reference, fit_weights, gather_strategy):
+    def _build(self, plan, fit_reference, fit_weights):
         self._fit_reference = (
             self._tensor(fit_reference, torch.float32) if fit_reference is not None else None
         )
@@ -467,31 +288,9 @@ class PlanEvaluator:
             self._tensor(fit_weights, torch.float32) if fit_weights is not None else None
         )
         dist_pairs = plan.dist_pairs.reshape(-1, 2)
-        n_dist = dist_pairs.shape[0]
-        n_atoms_total = int(plan.dist_pairs.max() + 1) if n_dist else 0
         has_centers = bool(
             np.any(plan.dist_center_a >= 0) or np.any(plan.dist_center_b >= 0)
         )
-        # The JAX package's strategy choice, kept so both packages name the
-        # same strategy for a plan: the selector contraction for dense pair
-        # sets without centers, else the gather. On this card both are K1
-        # on pair indices (the selector was a matrix-unit device on the TPU);
-        # only the gather with centers appends the group centers first.
-        dense_pairs = (
-            n_atoms_total <= 512
-            or n_dist >= (n_atoms_total * n_atoms_total) // 8
-        )
-        use_matmul = (
-            gather_strategy == "matmul"
-            or (
-                gather_strategy == "auto"
-                and n_dist > 0
-                and not has_centers
-                and dense_pairs
-                and n_dist * max(n_atoms_total, 1) <= 50_000_000
-            )
-        )
-        self.strategy = "selector" if use_matmul and n_dist and not has_centers else "gather"
         self._dihedral_mode = self._tensor(plan.dihedral_mode)
         self._coord_axes = self._tensor(plan.coord_axes)
         self._center_mask = self._tensor(plan.center_mask, torch.float32)
@@ -563,13 +362,13 @@ class PlanEvaluator:
             coords_chunk = coords_chunk.detach().numpy()
         frames = np.asarray(coords_chunk)
         self._check_shape(frames.shape)
-        with self._ring_lock, _staging():
+        with self._ring_lock, staging():
             return self._eval_staged(frames, then)
 
     def chunk_frames(self, n_atoms: int) -> int:
         """Frames of `n_atoms` atoms that one chunk of the staged copy up
         holds: a slot of what goes up of each (the plan's atoms, or all)."""
-        return max(1, SLOT_BYTES // (12 * max(self._staged_width(n_atoms), 1)))
+        return max(1, transport.SLOT_BYTES // (12 * max(self._staged_width(n_atoms), 1)))
 
     def _staged_width(self, n_atoms: int) -> int:
         """Atoms a frame of `n_atoms` keeps staged: the plan's alone, unless
@@ -590,9 +389,9 @@ class PlanEvaluator:
         width = self._staged_width(n_atoms)
         atoms, indices = (self._atoms, self._compact) if width < n_atoms else (None, self._full)
         step = self.chunk_frames(n_atoms)
-        floats = max(SLOT_BYTES // 4, 3 * step * width)
+        floats = max(transport.SLOT_BYTES // 4, 3 * step * width)
         if self._ring is None or self._ring.floats < floats:
-            self._ring = _StagingRing(self.device, floats)
+            self._ring = UploadRing(self.device, floats)
         ring = self._ring
         UPLOAD_STATS.count_call()
         out = None

@@ -15,14 +15,12 @@ halve (float32 to int16).
     there (the sharded branch of the JAX package's `_eval_quantized`).
 
 `Featurizer.featurize_trajectory(upload="int16")` (geom/engine.py) sends
-every chunk this way; its default is float32. `resolve_upload_mode("auto")`
-reads DC_TPU_UPLOAD, the setting the JAX package reads too, so a caller
-that passes "auto" follows the same variable as the JAX package.
+every chunk this way; its default is float32, and it refuses any mode but
+the two of `UPLOAD_MODES`.
 """
 
 from __future__ import annotations
 
-import os
 from typing import List, Tuple
 
 import numpy as np
@@ -38,7 +36,6 @@ __all__ = [
     "upload_coords",
     "upload_coords_sharded",
     "quantization_step",
-    "resolve_upload_mode",
 ]
 
 # int16 symmetric range; one code point spare so the grid is symmetric
@@ -109,13 +106,3 @@ def upload_coords_sharded(block: np.ndarray, mesh: Mesh) -> List[torch.Tensor]:
 
     return run_per_device(upload, mesh, split(q, mesh))
 
-
-def resolve_upload_mode(mode: str = "auto") -> str:
-    """'int16' or 'float32' for an upload setting. 'auto' reads the
-    DC_TPU_UPLOAD environment variable, float32 (exact) when it is unset;
-    any other value raises."""
-    if mode == "auto":
-        mode = os.environ.get("DC_TPU_UPLOAD", "float32")
-    if mode not in UPLOAD_MODES:
-        raise ValueError(f"unknown upload mode {mode!r} (auto|int16|float32)")
-    return mode

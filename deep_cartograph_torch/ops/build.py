@@ -73,78 +73,6 @@ class KernelStats:
             self.plain_calls += 1
 
 
-@dataclass
-class UploadStats:
-    """Counters of the staged copy up of host frames
-    (`geom/kernels.py::PlanEvaluator`): `calls` staged, their `chunks` and
-    `frames`, the `bytes_sent` to the device and the `bytes_held` by the
-    caller's frames (the two differ when only the plan's atoms go up), and
-    the `slot_waits`, chunks that waited for a slot of the ring to come
-    free. Callers reset them (`reset()`, or a field to 0) around a region
-    they measure. The counts are taken under a lock: the mesh's worker
-    threads stage at once."""
-
-    calls: int = 0
-    chunks: int = 0
-    frames: int = 0
-    bytes_sent: int = 0
-    bytes_held: int = 0
-    slot_waits: int = 0
-    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
-
-    def count_chunk(self, frames: int, bytes_sent: int, bytes_held: int,
-                    waited: bool) -> None:
-        """Count one staged chunk."""
-        with self._lock:
-            self.chunks += 1
-            self.frames += frames
-            self.bytes_sent += bytes_sent
-            self.bytes_held += bytes_held
-            self.slot_waits += int(waited)
-
-    def count_call(self) -> None:
-        """Count one staged call."""
-        with self._lock:
-            self.calls += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self.calls = self.chunks = self.frames = 0
-            self.bytes_sent = self.bytes_held = self.slot_waits = 0
-
-
-@dataclass
-class DownloadStats:
-    """Counters of the copy back of featurized chunks
-    (`geom/engine.py::Featurizer`'s download ring): the `chunks` sent down
-    and their `bytes`, the `pieces` they took (a slot each) and the
-    `slot_waits`, pieces whose copy had not completed when the host came
-    to take their slot. Callers reset them (`reset()`, or a field to 0)
-    around a region they measure. The counts are taken under a lock."""
-
-    chunks: int = 0
-    bytes: int = 0
-    pieces: int = 0
-    slot_waits: int = 0
-    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
-
-    def count_chunk(self, nbytes: int, pieces: int) -> None:
-        """Count one chunk sent down in `pieces` pieces."""
-        with self._lock:
-            self.chunks += 1
-            self.bytes += nbytes
-            self.pieces += pieces
-
-    def count_take(self, waited: bool) -> None:
-        """Count one piece taken out of its slot."""
-        with self._lock:
-            self.slot_waits += int(waited)
-
-    def reset(self) -> None:
-        with self._lock:
-            self.chunks = self.bytes = self.pieces = self.slot_waits = 0
-
-
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     candidates = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []

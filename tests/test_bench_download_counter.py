@@ -7,7 +7,7 @@ import pytest
 
 from carto_bench.harness import Context, Trace, Window, load_module, reader_path
 from deep_cartograph_torch.geom import engine
-from deep_cartograph_torch.ops.build import DownloadStats
+from deep_cartograph_torch.geom.transport import DownloadStats
 
 METRIC = "d2h_slot_waits_per_chunk.featurize"
 

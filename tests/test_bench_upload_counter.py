@@ -7,7 +7,7 @@ import pytest
 
 from carto_bench.harness import Context, Trace, Window, load_module, reader_path
 from deep_cartograph_torch.geom import kernels
-from deep_cartograph_torch.ops.build import UploadStats
+from deep_cartograph_torch.geom.transport import UploadStats
 
 METRIC = "upload_bytes_per_frame.serve"
 

@@ -729,9 +729,9 @@ def _backbone_frames(folder, n_res=20, n_frames=3000, seed=2):
 @pytest.fixture
 def small_ring(monkeypatch):
     """Slots of 256 frames of 20 atoms: a ring of 768 frames."""
-    from deep_cartograph_torch.geom import kernels
+    from deep_cartograph_torch.geom import transport
 
-    monkeypatch.setattr(kernels, "SLOT_BYTES", 256 * 20 * 12)
+    monkeypatch.setattr(transport, "SLOT_BYTES", 256 * 20 * 12)
     return 256
 
 

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from deep_cartograph_torch.geom import engine, kernels
+from deep_cartograph_torch.geom import engine, transport
 from deep_cartograph_torch.geom.engine import DOWNLOAD_STATS, Featurizer
 from deep_cartograph_torch.io.topology import Topology
 from deep_cartograph_torch.io.traj import iter_frame_chunks, read_traj, write_traj
@@ -86,9 +86,9 @@ def test_both_entry_points_equal_the_per_chunk_evaluator(system, monkeypatch, ca
     sizes, suffix, stride, chunk, slot_rows, map_step = CASES[case]
     folder, top, coords = system
     if slot_rows is not None:
-        monkeypatch.setattr(kernels, "SLOT_BYTES", 4 * len(LABELS) * slot_rows)
+        monkeypatch.setattr(transport, "SLOT_BYTES", 4 * len(LABELS) * slot_rows)
     if map_step is not None:
-        monkeypatch.setattr(engine, "MAP_STEP", map_step)
+        monkeypatch.setattr(transport, "MAP_STEP", map_step)
         coords = np.concatenate([coords] * 10)
     paths = trajectories(folder, coords, sizes, suffix, case)
     featurizer = Featurizer(top, LABELS, device="cpu")
@@ -132,28 +132,28 @@ def test_mapping_pages_gives_fresh_zero_pages_and_refuses_an_unaligned_start():
     memory = mmap.mmap(-1, 3 * page, flags=mmap.MAP_PRIVATE)
     array = np.frombuffer(memory, np.uint8)
     array[:] = 7
-    assert kernels.map_pages(array.ctypes.data + page, page + 1) == 0
+    assert transport.map_pages(array.ctypes.data + page, page + 1) == 0
     assert (array[:page] == 7).all() and (array[page:] == 0).all()
-    assert kernels.map_pages(array.ctypes.data + 1, page) == errno.EINVAL
+    assert transport.map_pages(array.ctypes.data + 1, page) == errno.EINVAL
     assert (array[:page] == 7).all()
 
 
 def test_copy_rows_copies_and_checks_its_buffers():
     src = torch.arange(12 * 7, dtype=torch.float32).reshape(12, 7)
     dst = np.full((12, 7), -1, np.float32)
-    kernels.copy_rows(dst, src)
+    transport.copy_rows(dst, src)
     np.testing.assert_array_equal(dst, src.numpy())
     for bad_dst, bad_src in [(np.empty((12, 6), np.float32), src),
                              (np.empty((12, 7), np.float64), src),
                              (np.empty((7, 12), np.float32).T, src),
                              (dst, src.double()), (dst, src.t().contiguous().t())]:
         with pytest.raises(ValueError):
-            kernels.copy_rows(bad_dst, bad_src)
+            transport.copy_rows(bad_dst, bad_src)
 
 
 @pytest.mark.parametrize("cores, floats, team", [
     (8, 1, 1),
-    (8, kernels.GATHER_GRAIN + 1, 2),
+    (8, transport.GATHER_GRAIN + 1, 2),
     (8, 2048 * 3235, 4),    # a lambda80 chunk: half the cores
     (32, 2048 * 3235, 16),
     (1, 2048 * 3235, 1),
@@ -162,10 +162,10 @@ def test_the_copy_s_team_leaves_cores_to_the_threads_beside_it(monkeypatch, core
                                                                team):
     """A thread a GATHER_GRAIN floats, at most half the cores, whatever is
     staging at once."""
-    monkeypatch.setattr(kernels.os, "sched_getaffinity", lambda pid: set(range(cores)),
+    monkeypatch.setattr(transport.os, "sched_getaffinity", lambda pid: set(range(cores)),
                         raising=False)
-    monkeypatch.setattr(kernels, "_staging_calls", 3)
-    assert kernels._copy_team(floats) == team
+    monkeypatch.setattr(transport, "_staging_calls", 3)
+    assert transport._copy_team(floats) == team
 
 
 @pytest.mark.parametrize("suffix, counted", [(".dcd", True), (".xtc", False), (".trr", False),
@@ -285,7 +285,7 @@ def test_the_card_s_matrix_is_the_joined_outputs_bit_for_bit(cuda, wide_system, 
                                                              slot_rows):
     top, labels, path, n = wide_system
     if slot_rows is not None:   # a 2,048-frame chunk in 7 pieces, the ring of 3 lapped
-        monkeypatch.setattr(kernels, "SLOT_BYTES", 4 * len(labels) * slot_rows)
+        monkeypatch.setattr(transport, "SLOT_BYTES", 4 * len(labels) * slot_rows)
     featurizer = Featurizer(top, labels, device=cuda)
     want = joined_on_the_card(featurizer, path, 2048)
     DOWNLOAD_STATS.reset()

@@ -84,27 +84,15 @@ def test_plan_evaluator_matches_jax(name, ca_system):
     )
     want = jax_evaluator(coords)
     plan = compile_plan(labels, Topology.from_pdb(ca_system.pdb_path))
-    evaluator = PlanEvaluator(
-        plan, fit_reference=fit_ref, fit_weights=fit_w, gather_strategy=strategy,
-        device="cpu",
-    )
+    evaluator = PlanEvaluator(plan, fit_reference=fit_ref, fit_weights=fit_w, device="cpu")
     got = evaluator(coords)
     assert got.shape == want.shape == (coords.shape[0], len(labels))
     np.testing.assert_allclose(got, want, atol=1e-5)
 
-    # both packages pick the same distance strategy for the plan
-    jax_selector = jax_evaluator._dist_selector is not None
-    assert evaluator.strategy == ("selector" if jax_selector else "gather")
     if name == "out_perm":
         assert not evaluator._identity_layout
     if name in ("selector", "dihedral_modes"):
         assert evaluator._identity_layout
-
-
-def test_plan_evaluator_rejects_unknown_strategy(ca_system):
-    plan = compile_plan(["dist-@CA_1-@CA_5"], Topology.from_pdb(ca_system.pdb_path))
-    with pytest.raises(ValueError, match="gather_strategy"):
-        PlanEvaluator(plan, gather_strategy="einsum", device="cpu")
 
 
 def test_plan_evaluator_rejects_frames_lacking_atoms(ca_system):

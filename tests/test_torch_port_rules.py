@@ -471,7 +471,7 @@ NATIVE_SOURCES = {
     "io/dcd.py": ("_SOURCE", "io/csrc/dcdloader.cpp"),
     "io/xtc.py": ("_CODEC_SOURCE", "io/csrc/xdrcodec.cpp"),
     "stats/descriptors.py": ("_DIP_SOURCE", "stats/csrc/diptest.cpp"),
-    "geom/kernels.py": ("_STAGE_SOURCE", "geom/csrc/stage_atoms.cpp"),
+    "geom/transport.py": ("_STAGE_SOURCE", "geom/csrc/stage_atoms.cpp"),
 }
 
 
@@ -482,7 +482,7 @@ def test_native_code_is_the_ports_own_and_a_failed_build_raises(monkeypatch, tmp
     source."""
     import importlib
 
-    from deep_cartograph_torch.geom import kernels
+    from deep_cartograph_torch.geom import transport
     from deep_cartograph_torch.io import colvars, dcd
     from deep_cartograph_torch.ops import build
 
@@ -506,7 +506,7 @@ def test_native_code_is_the_ports_own_and_a_failed_build_raises(monkeypatch, tmp
         (lambda: colvars.read_features_matrix(colvars_path), "colvars_io.cpp"),
         (lambda: next(dcd.iter_dcd_chunks_prefetch(dcd_path, 8)), "dcdloader.cpp"),
         (lambda: descriptors.dip_pvalues(x), "diptest.cpp"),
-        (lambda: kernels.stage_atoms(x.reshape(20, 1, 3), None, torch.empty(60)),
+        (lambda: transport.stage_atoms(x.reshape(20, 1, 3), None, torch.empty(60)),
          "stage_atoms.cpp"),
     ):
         with pytest.raises(RuntimeError, match=f"g\\+\\+ not found; {source}"):

@@ -16,7 +16,7 @@ import torch
 
 from deep_cartograph_torch.deploy import FramesToCV, LinearProjection
 from deep_cartograph_torch.features.grammar import compile_plan
-from deep_cartograph_torch.geom import kernels
+from deep_cartograph_torch.geom import kernels, transport
 from deep_cartograph_torch.geom.kernels import UPLOAD_STATS, PlanEvaluator
 from deep_cartograph_torch.io.topology import Topology
 from deep_cartograph_torch.parallel.mesh import Mesh, use_mesh
@@ -56,7 +56,7 @@ def chunk_of(monkeypatch):
     evaluators built after the call."""
 
     def set_chunk(frames, width):
-        monkeypatch.setattr(kernels, "SLOT_BYTES", frames * width * 12)
+        monkeypatch.setattr(transport, "SLOT_BYTES", frames * width * 12)
 
     return set_chunk
 
@@ -231,22 +231,22 @@ def test_k1_runs_once_a_staged_chunk_of_each_slice(system, chunk_of, mesh_size):
 
 @pytest.mark.parametrize("floats, calls, team", [
     (1, 1, 1),
-    (kernels.GATHER_GRAIN, 1, 1),
-    (kernels.GATHER_GRAIN + 1, 1, 2),
+    (transport.GATHER_GRAIN, 1, 1),
+    (transport.GATHER_GRAIN + 1, 1, 2),
     (2048 * 80 * 3, 1, 2),        # a featurize block of 2,048 CA frames
-    (kernels.SLOT_BYTES // 4, 1, 7),     # a full slot: every core but one
-    (kernels.SLOT_BYTES // 4, 2, 3),     # two evaluators staging at once share them
-    (kernels.SLOT_BYTES // 4, 4, 1),
-    (kernels.SLOT_BYTES // 4, 9, 1),
+    (transport.SLOT_BYTES // 4, 1, 7),     # a full slot: every core but one
+    (transport.SLOT_BYTES // 4, 2, 3),     # two evaluators staging at once share them
+    (transport.SLOT_BYTES // 4, 4, 1),
+    (transport.SLOT_BYTES // 4, 9, 1),
 ])
 def test_the_gather_s_team_follows_the_block_and_the_calls_staging(monkeypatch, floats,
                                                                    calls, team):
     """On eight cores: a thread a GATHER_GRAIN floats, at most seven, split
     among the calls staging at once."""
-    monkeypatch.setattr(kernels.os, "sched_getaffinity", lambda pid: set(range(8)),
+    monkeypatch.setattr(transport.os, "sched_getaffinity", lambda pid: set(range(8)),
                         raising=False)
-    monkeypatch.setattr(kernels, "_staging_calls", calls)
-    assert kernels._gather_team(floats) == team
+    monkeypatch.setattr(transport, "_staging_calls", calls)
+    assert transport._gather_team(floats) == team
 
 
 def test_calls_staging_at_once_are_counted(system):
@@ -262,7 +262,7 @@ def test_calls_staging_at_once_are_counted(system):
 
     def then(features):
         both_in.wait()
-        seen.append(kernels._staging_calls)
+        seen.append(transport._staging_calls)
         both_in.wait()
         return features
 
@@ -273,8 +273,8 @@ def test_calls_staging_at_once_are_counted(system):
     for t in threads:
         t.join(timeout=120)
     assert seen == [2, 2]
-    evaluators[0].eval_raw(coords[:50], lambda f: seen.append(kernels._staging_calls) or f)
-    assert seen[-1] == 1 and kernels._staging_calls == 0
+    evaluators[0].eval_raw(coords[:50], lambda f: seen.append(transport._staging_calls) or f)
+    assert seen[-1] == 1 and transport._staging_calls == 0
 
 
 def test_the_gather_copies_the_named_atoms_and_checks_its_buffers():
@@ -282,19 +282,19 @@ def test_the_gather_copies_the_named_atoms_and_checks_its_buffers():
     frames = rng.normal(size=(70_000, 5, 3)).astype(np.float32)   # threads split it
     atoms = np.array([4, 0, 2], np.int64)
     out = torch.empty(70_000 * 3 * 3)
-    kernels.stage_atoms(frames, atoms, out, threads=4)
+    transport.stage_atoms(frames, atoms, out, threads=4)
     assert np.array_equal(out.numpy().reshape(70_000, 3, 3), frames[:, atoms])
     whole = torch.empty(frames.size)
-    kernels.stage_atoms(frames, None, whole, threads=3)
+    transport.stage_atoms(frames, None, whole, threads=3)
     assert np.array_equal(whole.numpy().reshape(frames.shape), frames)
     for bad in (frames.astype(np.float64), frames[:, ::2]):
         with pytest.raises(ValueError, match="stage_atoms needs"):
-            kernels.stage_atoms(bad, atoms, out[:bad.shape[0] * 9])
+            transport.stage_atoms(bad, atoms, out[:bad.shape[0] * 9])
     with pytest.raises(ValueError, match="stage_atoms needs"):
-        kernels.stage_atoms(frames, atoms, out[:-1])
+        transport.stage_atoms(frames, atoms, out[:-1])
     for bad_atoms in (np.array([4, 0, 5]), np.array([4, -1, 2]), atoms.astype(np.int32)):
         with pytest.raises(ValueError, match="int64 atoms in"):
-            kernels.stage_atoms(frames, bad_atoms, out)
+            transport.stage_atoms(frames, bad_atoms, out)
 
 
 def test_threads_sharing_an_evaluator_each_get_their_frames(system, chunk_of):

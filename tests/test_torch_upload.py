@@ -70,20 +70,14 @@ def test_upload_coords_modes():
         tup.upload_coords(block, "bfloat16", device="cpu")
 
 
-def test_upload_mode_setting(monkeypatch):
-    monkeypatch.delenv("DC_TPU_UPLOAD", raising=False)
-    for mod in (tup, jup):
-        assert mod.resolve_upload_mode() == "float32"
-        assert mod.resolve_upload_mode("int16") == "int16"
+def test_upload_mode_setting(system, monkeypatch):
+    """The port takes "float32" or "int16" and refuses every other mode,
+    "auto" too: DC_TPU_UPLOAD, which the JAX package reads, picks nothing."""
     monkeypatch.setenv("DC_TPU_UPLOAD", "int16")
-    assert tup.resolve_upload_mode() == jup.resolve_upload_mode() == "int16"
-    assert tup.resolve_upload_mode("float32") == "float32"
-    monkeypatch.setenv("DC_TPU_UPLOAD", "fp8")
-    for mod in (tup, jup):
+    assert jup.resolve_upload_mode() == "int16"
+    for mode in ("auto", "half", "int8"):
         with pytest.raises(ValueError, match="unknown upload mode"):
-            mod.resolve_upload_mode()
-    with pytest.raises(ValueError, match="unknown upload mode"):
-        tup.resolve_upload_mode("half")
+            _port_features(system, mode)
 
 
 @pytest.fixture(scope="module")
@@ -117,20 +111,9 @@ def test_int16_features_match_jax(system):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
-def test_upload_auto_reads_the_setting(system, monkeypatch):
-    monkeypatch.setenv("DC_TPU_UPLOAD", "int16")
-    np.testing.assert_array_equal(_port_features(system, "auto"),
-                                  _port_features(system, "int16"))
-    monkeypatch.setenv("DC_TPU_UPLOAD", "float32")
-    np.testing.assert_array_equal(_port_features(system, "auto"),
-                                  _port_features(system, "float32"))
-    with pytest.raises(ValueError, match="unknown upload mode"):
-        _port_features(system, "int8")
-
-
 def test_upload_default_ignores_the_setting(system, monkeypatch):
     """The Featurizer's default is the exact float32 copy: DC_TPU_UPLOAD
-    (set for a JAX run, say) reaches the port only through upload="auto"."""
+    (set for a JAX run, say) does not reach the port."""
     monkeypatch.setenv("DC_TPU_UPLOAD", "int16")
     top = Topology.from_pdb(system["pdb"])
     default = Featurizer(top, system["labels"], device="cpu").featurize_trajectory(
