@@ -935,6 +935,18 @@ def calculator(cv: str, config: dict, data, labels, device="cuda", **general):
     return calc
 
 
+def union_us(ranges) -> float:
+    """Length of the union of profiler time ranges, in µs: kernels that a
+    CUDA graph runs side by side count once."""
+    total, reach = 0.0, -np.inf
+    for r in sorted(ranges, key=lambda r: r.start):
+        start = max(r.start, reach)
+        if r.end > start:
+            total += r.end - start
+            reach = r.end
+    return total
+
+
 def training_breakdown(cv: str, config: dict, calc_main) -> dict:
     """A training on the main path's data (same config and seeds) cut to
     BREAKDOWN_EPOCHS epochs, run twice through the calculator's `train`:
@@ -944,7 +956,7 @@ def training_breakdown(cv: str, config: dict, calc_main) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from deep_cartograph_torch.models.training import STEP_SPAN
+    from deep_cartograph_torch.models.training import STEP_SPAN, TRAIN_STATS
 
     def make():
         return calculator(cv, config, calc_main.training_data,
@@ -959,31 +971,40 @@ def training_breakdown(cv: str, config: dict, calc_main) -> dict:
            "host_syncs_train": sum(sites.values()), "host_sync_sites": dict(sites)}
 
     calc = make()
+    replayed, captures = TRAIN_STATS.replayed_steps, TRAIN_STATS.captures
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = synced(calc.train)
+    replayed = TRAIN_STATS.replayed_steps - replayed
+    captures = TRAIN_STATS.captures - captures
     events = prof.events()
     host, card = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     # A step span lies on the host's timeline and, mirrored, on the card's,
-    # from the step's first kernel to its last. The backward's kernels are
-    # launched from autograd's own thread, so they are counted by where
-    # they run on the card, not by the host span they were launched in.
+    # from the step's first kernel to its last; a step that captures the
+    # trainer's CUDA graph is mirrored twice, once for the capture's own
+    # work on its side stream and once for the first replay. The backward's
+    # kernels are launched from autograd's own thread, so they are counted
+    # by where they run on the card, not by the host span they were
+    # launched in. Card time is the union of the kernels' intervals, since
+    # a replayed graph runs independent kernels side by side.
     spans = [e.time_range for e in events if e.name == STEP_SPAN and e.device_type == host]
     windows = [e.time_range for e in events if e.name == STEP_SPAN and e.device_type == card]
     work = [e.time_range for e in events if e.device_type == card and e.name != STEP_SPAN]
     syncs = [e.time_range for e in events if e.name in SYNC_CALLS]
     in_steps = sum(any(s.start <= e.start <= s.end for s in spans) for e in syncs)
-    device_us = sum(w.elapsed_us() for w in work)
+    device_us = union_us(work)
     step_host_us = sum(s.elapsed_us() for s in spans)
-    step_device_us = sum(w.elapsed_us() for w in work
-                         if any(s.start <= w.start < s.end for s in windows))
-    check(len(windows) == len(spans), "the profile mirrors every step on the card")
+    step_device_us = union_us([w for w in work
+                               if any(s.start <= w.start < s.end for s in windows)])
+    check(len(windows) == len(spans) + captures, "the profile mirrors every step on the card")
     out.update({
         "profiled_steps": len(spans),
+        "profiled_replayed_steps": replayed,
+        "profiled_captures": captures,
         "profiled_sync_calls_train": len(syncs),
         "profiled_sync_calls_per_step": in_steps / max(len(spans), 1),
         "profiled_step_ms": step_host_us / max(len(spans), 1) / 1e3,
         "profiled_step_device_ms": step_device_us / max(len(spans), 1) / 1e3,
-        "profiled_step_busy_share": step_device_us / max(step_host_us, 1e-9),
+        "profiled_step_busy_share": step_device_us / max(union_us(windows), 1e-9),
         "profiled_train_s": wall,
         "profiled_train_busy_share": device_us / 1e6 / wall,
     })
@@ -1618,7 +1639,8 @@ def autoencoders(calc_deep, linear: dict, ctx: dict, tmp: str, stats, card: str,
             f"{breakdown['profiled_sync_calls_per_step']:.2f} sync calls per step, a step "
             f"{breakdown['profiled_step_ms']:.3f} ms of host time launching "
             f"{breakdown['profiled_step_device_ms']:.3f} ms of card work "
-            f"({breakdown['profiled_step_busy_share']:.1%})")
+            f"(card busy {breakdown['profiled_step_busy_share']:.1%} of the steps' "
+            f"card windows)")
     tanh_config = copy.deepcopy(AUTOENCODER_CONFIG)
     tanh_config["architecture"]["encoder"]["activation"] = ["tanh"] * 3
     for name, config in (("leaky_relu", AUTOENCODER_CONFIG), ("tanh", tanh_config)):
@@ -3492,7 +3514,8 @@ def main() -> int:
         f"{compare['profiled_sync_calls_per_step']:.2f} sync calls per step, a "
         f"step {compare['profiled_step_ms']:.3f} ms of host time launching "
         f"{compare['profiled_step_device_ms']:.3f} ms of card work "
-        f"({compare['profiled_step_busy_share']:.1%}), card busy "
+        f"(card busy {compare['profiled_step_busy_share']:.1%} of the steps' card "
+        f"windows), card busy "
         f"{compare['profiled_train_busy_share']:.1%} of the profiled training "
         f"({compare['profiled_train_s']:.3f} s)")
     log(json.dumps(compare))

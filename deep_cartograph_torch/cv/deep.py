@@ -46,6 +46,7 @@ import torch
 from deep_cartograph_torch.cv.base import CVCalculator, cv_names_map
 from deep_cartograph_torch.cv.tica_math import (
     generalized_eigh,
+    generalized_eigvals_sum,
     tica,
     timelagged_covariances,
 )
@@ -62,6 +63,7 @@ from deep_cartograph_torch.models.torch_export import (
     save_torchscript,
 )
 from deep_cartograph_torch.models.training import (
+    CHOLESKY_INFO,
     KLAnnealing,
     Trainer,
     TrainerConfig,
@@ -638,31 +640,41 @@ class NonLinear(CVCalculator):
             remove_files(*self.training_metrics_paths)
 
 
+def _deep_tica_covariances(module, params: Params, batch, generators, train: bool):
+    """C0 and Ctau (T, n_cvs, n_cvs) of the network's outputs on the
+    weighted batch. q_t and q_lag see the same dropout masks, drawn once by
+    q_t's forward, as on the JAX side, where both forwards take one key."""
+    masks = {} if train else None
+    q_t = module(params, batch["data"], train=train, generators=generators, masks=masks)
+    q_lag = module(params, batch["data_lag"], train=train, generators=generators,
+                   masks=masks)
+    c0, ctau, _ = timelagged_covariances(q_t, q_lag, batch["weight"])
+    return c0, ctau
+
+
 def deep_tica_batch_eigvals(module, params: Params, batch,
                             generators, reg: float, train: bool = True):
     """Weighted batch TICA eigenvalues (T, n_cvs) of the network outputs:
-    the DeepTICA objective's core (cf. reference cv_calculator.py:2507-2627).
-    q_t and q_lag see the same dropout masks, as on the JAX side, where
-    both forwards take one key."""
-    states = None
-    if train and any(module.options["dropout"]):
-        states = [g.get_state() for g in generators]
-    q_t = module(params, batch["data"], train=train, generators=generators)
-    if states is not None:
-        for g, state in zip(generators, states):
-            g.set_state(state)
-    q_lag = module(params, batch["data_lag"], train=train, generators=generators)
-    c0, ctau, _ = timelagged_covariances(q_t, q_lag, batch["weight"])
+    the DeepTICA objective's core (cf. reference cv_calculator.py:2507-2627)."""
+    c0, ctau = _deep_tica_covariances(module, params, batch, generators, train)
     evals, _ = generalized_eigh(ctau, c0, reg)
     return evals
 
 
 def make_deep_tica_loss(module, reg: float, dim: int):
-    """Trainer-compatible DeepTICA loss over `module` (-sum of eigenvalues)."""
+    """Trainer-compatible DeepTICA loss over `module`: -sum of the batch's
+    TICA eigenvalues. In training, the sum is the whitened Ctau's trace,
+    which waits for no eigh nor for Cholesky's check: the aux carries
+    Cholesky's `info` for the trainer to check (`CHOLESKY_INFO`). In
+    validation, the aux holds each eigenvalue."""
 
     def loss_fn(params, batch, generators, beta, train=True):
+        if train:
+            c0, ctau = _deep_tica_covariances(module, params, batch, generators, True)
+            total, info = generalized_eigvals_sum(ctau, c0, reg)
+            return -total, {CHOLESKY_INFO: info}
         evals = deep_tica_batch_eigvals(module, params, batch, generators, reg,
-                                        train=train)
+                                        train=False)
         aux = {f"eigval_{i + 1}": evals[:, i] for i in range(dim)}
         return -evals.sum(-1), aux
 

@@ -78,21 +78,43 @@ def _symmetrize(m: torch.Tensor) -> torch.Tensor:
     return 0.5 * (m + m.transpose(-1, -2))
 
 
+def _regularized(b: torch.Tensor, reg: float) -> torch.Tensor:
+    eye = torch.eye(b.shape[-1], dtype=b.dtype, device=b.device)
+    return _symmetrize(b + reg * eye)
+
+
+def _whiten(a: torch.Tensor, chol: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(L⁻¹, L⁻¹ a L⁻ᵀ) for the Cholesky factor L."""
+    eye = torch.eye(chol.shape[-1], dtype=chol.dtype, device=chol.device)
+    li = torch.linalg.solve_triangular(chol, eye.expand_as(chol), upper=False)
+    return li, li @ a @ li.transpose(-1, -2)
+
+
 def generalized_eigh(
     a: torch.Tensor, b: torch.Tensor, reg: float = 1e-6
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Solve a v = w b v for symmetric a, SPD b (batched over leading
     dimensions) by Cholesky whitening. Returns the eigenvalues descending
     and the eigenvectors (columns) with v^T b v = 1."""
-    dim = b.shape[-1]
-    eye = torch.eye(dim, dtype=b.dtype, device=b.device)
-    chol = torch.linalg.cholesky(_symmetrize(b + reg * eye))
-    li = torch.linalg.solve_triangular(chol, eye.expand_as(chol), upper=False)
-    a_white = li @ a @ li.transpose(-1, -2)
+    li, a_white = _whiten(a, torch.linalg.cholesky(_regularized(b, reg)))
     w, u = torch.linalg.eigh(_symmetrize(a_white))
     w = w.flip(-1)
     u = u.flip(-1)
     return w, li.transpose(-1, -2) @ u
+
+
+def generalized_eigvals_sum(
+    a: torch.Tensor, b: torch.Tensor, reg: float = 1e-6
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sum of `generalized_eigh`'s eigenvalues, as the trace of the
+    whitened a, and Cholesky's `info` (b's leading dimensions; 0 where
+    b + reg I is positive definite). The trace equals the sum, and so does
+    its gradient (eigh's backward for a cotangent of ones on the
+    eigenvalues is U Uᵀ = I), with no eigh and no wait for the card: the
+    caller checks `info`, as `torch.linalg.cholesky` would have."""
+    chol, info = torch.linalg.cholesky_ex(_regularized(b, reg))
+    _, a_white = _whiten(a, chol)
+    return a_white.diagonal(dim1=-2, dim2=-1).sum(-1), info
 
 
 def _fix_sign(evecs: np.ndarray) -> np.ndarray:

@@ -96,11 +96,18 @@ def init_feedforward_stack(
     return params
 
 
-def _dropout_stack(x: torch.Tensor, rate: float, generators) -> torch.Tensor:
-    """Dropout on (T, B, F) with try t's mask drawn from generators[t]."""
-    keep = torch.stack([
-        torch.rand(x.shape[1:], generator=g, device=x.device) for g in generators
-    ]) >= rate
+def _dropout_stack(x: torch.Tensor, rate: float, generators,
+                   masks: Optional[Dict[int, torch.Tensor]], layer: int) -> torch.Tensor:
+    """Dropout on (T, B, F) with try t's mask drawn from generators[t].
+    With `masks`, the layer's mask is drawn once, kept under its index and
+    applied again by every later forward that is given the same dict."""
+    keep = None if masks is None else masks.get(layer)
+    if keep is None:
+        keep = torch.stack([
+            torch.rand(x.shape[1:], generator=g, device=x.device) for g in generators
+        ]) >= rate
+        if masks is not None:
+            masks[layer] = keep
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -118,12 +125,14 @@ def feedforward_stack(
     train: bool = False,
     generators: Optional[List[torch.Generator]] = None,
     prefix: str = "",
+    masks: Optional[Dict[int, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """The MLP of T tries at once: x (T, B, in) -> (T, B, out).
 
     Batchnorm takes each try's statistics over its whole batch (padded rows
     of a ragged batch included, as on the JAX side). Dropout is active
-    only with `train=True` and then needs one generator per try."""
+    only with `train=True` and then needs one generator per try; forwards
+    given one `masks` dict share their dropout masks, drawn by the first."""
     n = sum(1 for k in params if k.startswith(prefix) and k.endswith("/kernel"))
     for i in range(n):
         x = dense_stack(params, x, f"{prefix}dense_{i}")
@@ -136,7 +145,7 @@ def feedforward_stack(
         x = ACTIVATIONS[activation[i] if i < len(activation) else None](x)
         rate = dropout[i] if i < len(dropout) else None
         if rate and train:
-            x = _dropout_stack(x, rate, generators)
+            x = _dropout_stack(x, rate, generators, masks, i)
     return x
 
 
@@ -245,10 +254,12 @@ class DeepTICAStack(_Stack):
         )
 
     def forward(self, params: Params, x: torch.Tensor, train: bool = False,
-                generators: Optional[List[torch.Generator]] = None):
-        """x (T, B, in) -> (T, B, n_cvs)."""
+                generators: Optional[List[torch.Generator]] = None,
+                masks: Optional[Dict[int, torch.Tensor]] = None):
+        """x (T, B, in) -> (T, B, n_cvs); `masks` as `feedforward_stack`'s."""
         return feedforward_stack(params, self.normalize_in(x), train=train,
-                                 generators=generators, prefix="nn/", **self.options)
+                                 generators=generators, prefix="nn/", masks=masks,
+                                 **self.options)
 
 
 class AutoEncoderStack(_Stack):

@@ -12,7 +12,9 @@ All seeded tries train as one batched program: parameters carry a leading
 tries axis T (see `models/networks.py`), the dataset is held once on the
 device and gathered per try with global row indices, and every step
 updates all tries together. Each loop turn is one epoch: its batch indices
-go up once, and its losses come back in one read of the host. `Trainer.fit`
+go up once, and its losses come back in one read of the host. A step reads
+its inputs from device buffers that live for the whole fit (`_Steps`), so
+on a card it is captured once into a CUDA graph and replayed. `Trainer.fit`
 is the same program with T = 1. With a mesh of n devices that divides T
 (`parallel.mesh.mesh_for`, set by the caller's `use_mesh`), each device
 holds T / n of the tries, their optimizer state and a copy of the
@@ -28,6 +30,7 @@ phase boundaries by one step and cycles Adam's beta1).
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 import threading
@@ -87,17 +90,27 @@ class Optimizer:
             return {"trace": zeros()} if self.momentum else {}
         return {"nu": zeros()}
 
+    def bias_corrections(self, count: int) -> Tuple[np.float32, np.float32]:
+        """Adam's bias corrections at its `count`-th update, in float32, as
+        optax computes them."""
+        count = np.float32(count)
+        return (np.float32(1) - np.float32(self.b1) ** count,
+                np.float32(1) - np.float32(self.b2) ** count)
+
     @torch.no_grad()
     def step(self, params: Params, grads: Params, state: Dict,
              lr: torch.Tensor) -> None:
         """One update of every try in place; `lr` is (T,), one rate per
-        try."""
+        try. Adam takes its bias corrections from `state["bias"]`, a (2,)
+        tensor on the device, where the caller put them (the trainer, from
+        its table, keeps no count); else it counts its updates on the host,
+        in `state["count"]`."""
         if self.name in ("adam", "adamw"):
-            state["count"] += 1
-            # bias corrections in float32, as optax computes them
-            count = np.float32(state["count"])
-            bc1 = np.float32(1) - np.float32(self.b1) ** count
-            bc2 = np.float32(1) - np.float32(self.b2) ** count
+            if "bias" in state:
+                bc1, bc2 = state["bias"].unbind()
+            else:
+                state["count"] += 1
+                bc1, bc2 = self.bias_corrections(state["count"])
         for k, p in params.items():
             g = grads[k]
             if self.weight_decay and self.name != "adamw":
@@ -299,11 +312,12 @@ def _make_batches(
 
 
 def _select(mask: np.ndarray, new: Params, old: Params) -> Params:
-    """Per try: new where mask, else old (copies, never views)."""
-    out = {}
+    """Per try: new where mask, else old (copies, never views). The mask
+    goes to the device once, for every leaf (one lane's, on one device)."""
+    out, m = {}, None
     for k, v in new.items():
-        m = torch.as_tensor(mask, device=v.device).view((-1,) + (1,) * (v.dim() - 1))
-        out[k] = torch.where(m, v.detach(), old[k])
+        m = torch.as_tensor(mask, device=v.device) if m is None else m
+        out[k] = torch.where(m.view((-1,) + (1,) * (v.dim() - 1)), v.detach(), old[k])
     return out
 
 
@@ -317,6 +331,36 @@ def _to_device(values, device: torch.device) -> torch.Tensor:
 LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 
+# The name of each training step's span in a torch.profiler trace.
+STEP_SPAN = "trainer.step"
+
+# The key, in a training loss's aux, of LAPACK's `info` of a Cholesky
+# factorization the loss left unchecked ((T,) integers, 0 where it held;
+# `torch.linalg.cholesky_ex`). The trainer keeps each try's first nonzero
+# one on the device and raises at its next host read what
+# `torch.linalg.cholesky` would have raised in the step.
+CHOLESKY_INFO = "cholesky_info"
+
+# The real steps a CUDA lane runs eagerly, on a side stream, before it
+# captures its step: PyTorch's whole-network capture recipe, in which
+# autograd's device threads, cuBLAS's workspace and the caching allocator
+# set themselves up before a capture.
+EAGER_STEPS = 3
+
+
+def _replays(device: torch.device) -> bool:
+    """Whether a lane on `device` replays its steps from a CUDA graph."""
+    return device.type == "cuda"
+
+
+@functools.cache
+def _side_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The stream of a device's eager steps and captures: one a process,
+    as `torch.cuda.graph` keeps one capture stream, since cuBLAS keeps a
+    workspace for every stream it has run on."""
+    return torch.cuda.Stream(device)
+
+
 @dataclass
 class _Lane:
     """The tries that train on one device, and their state there."""
@@ -328,9 +372,127 @@ class _Lane:
     params: Params = field(default_factory=dict)
     opt_state: Dict = field(default_factory=dict)
     gens: List[torch.Generator] = field(default_factory=list)
+    steps: Optional["_Steps"] = None
 
-# The name of each training step's span in a torch.profiler trace.
-STEP_SPAN = "trainer.step"
+
+class _Steps:
+    """A lane's optimizer steps, every input in a buffer that lives for
+    the whole fit: each step's batch order and weights, rate and Adam's
+    bias corrections (the epoch's rows, refilled by `fill`), the epoch's
+    loss sum, each try's first Cholesky failure and the row of the step at
+    hand, which every step advances on the device. On a CUDA lane
+    (`_replays`) the fit's first EAGER_STEPS steps run eagerly on a side
+    stream; the step is then captured into a CUDA graph, with every try's
+    generator registered so that each replay draws what an eager step
+    would, and replayed for every later step, captured again only when the
+    KL weight beta changes. Elsewhere every step runs eagerly: the same
+    code, which the replays are held to."""
+
+    def __init__(self, lane: _Lane, loss_fn: LossFn, optimizer: Optimizer,
+                 offsets: Dict[str, int], steps: int, batch_size: int):
+        dev = lane.device
+        n = lane.tries.stop - lane.tries.start
+        self.device, self.data, self.params = dev, lane.data, lane.params
+        self.opt_state, self.gens = lane.opt_state, lane.gens
+        self.loss_fn, self.optimizer, self.offsets = loss_fn, optimizer, offsets
+        self.order = torch.zeros((n, steps, batch_size), dtype=torch.int64, device=dev)
+        self.weight = torch.zeros((n, steps, batch_size), device=dev)
+        self.lr = torch.zeros((steps, n), device=dev)
+        self.bias = (torch.zeros((steps, 2), device=dev)
+                     if optimizer.name in ("adam", "adamw") else None)
+        if self.bias is not None:
+            # the table's rows stand in for Adam's host count, which a
+            # replayed step would leave where it was
+            del self.opt_state["count"]
+        self.loss_sum = torch.zeros(n, device=dev)
+        self.info = torch.zeros(n, dtype=torch.int32, device=dev)
+        self.row = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.loss: Optional[torch.Tensor] = None   # the last step's, (n,)
+        self.side = _side_stream(dev) if _replays(dev) else None
+        self.eager_left = EAGER_STEPS
+        self.graph, self.beta = None, None
+        self.replayed = self.captures = 0
+
+    def fill(self, order: np.ndarray, weight: np.ndarray, lr: np.ndarray,
+             bias: Optional[np.ndarray]) -> None:
+        """The epoch's rows: (n, steps, B) orders and weights, (steps, n)
+        rates, (steps, 2) bias corrections; the loss sum and row to 0."""
+        self.order.copy_(torch.from_numpy(order))
+        self.weight.copy_(torch.from_numpy(weight))
+        self.lr.copy_(torch.from_numpy(lr))
+        if self.bias is not None:
+            self.bias.copy_(torch.from_numpy(bias))
+        self.loss_sum.zero_()
+        self.row.zero_()
+
+    def __call__(self, beta: float) -> None:
+        """The step at the buffers' row, at the KL weight `beta`."""
+        if self.side is None:
+            self._step(beta)
+        elif self.eager_left:
+            self.eager_left -= 1
+            self._on_side(self._step, beta)
+        else:
+            if self.graph is None or beta != self.beta:
+                self._capture(beta)
+            self.graph.replay()
+            self.replayed += 1
+
+    def _step(self, beta: float) -> None:
+        row = self.row
+        idx = self.order.index_select(1, row).squeeze(1)
+        batch = {k: v[idx + self.offsets.get(k, 0)] for k, v in self.data.items()}
+        batch["weight"] = self.weight.index_select(1, row).squeeze(1)
+        with annotate("trainer.forward"):
+            loss, aux = self.loss_fn(self.params, batch, self.gens, beta, True)
+        with annotate("trainer.backward"):
+            grads = torch.autograd.grad(loss.sum(), list(self.params.values()))
+        with annotate("trainer.optimizer"):
+            if self.bias is not None:
+                self.opt_state["bias"] = self.bias.index_select(0, row).squeeze(0)
+            self.optimizer.step(self.params, dict(zip(self.params, grads)), self.opt_state,
+                                self.lr.index_select(0, row).squeeze(0))
+        self.loss = loss.detach()
+        self.loss_sum += self.loss
+        info = aux.get(CHOLESKY_INFO)
+        if info is not None:
+            self.info.copy_(torch.where(self.info == 0, info, self.info))
+        row += 1
+
+    def _on_side(self, fn: Callable, *args) -> None:
+        current = torch.cuda.current_stream(self.device)
+        self.side.wait_stream(current)
+        with torch.cuda.stream(self.side):
+            fn(*args)
+        current.wait_stream(self.side)
+
+    def _capture(self, beta: float) -> None:
+        self.graph = None
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.gens:
+            graph.register_generator_state(gen)
+
+        def record():
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self._step(beta)
+            finally:
+                graph.capture_end()
+
+        try:
+            self._on_side(record)
+        except RuntimeError as exc:
+            raise RuntimeError("The training step cannot be captured in a CUDA graph: "
+                               "its loss must not wait for the card nor copy between "
+                               "the host and the card. " + str(exc)) from exc
+        self.graph, self.beta = graph, beta
+        self.captures += 1
+
+    def check(self, info: Optional[np.ndarray] = None) -> None:
+        """Raise where a try's Cholesky failed (`CHOLESKY_INFO`): from
+        `info` read with the epoch's losses, else read here."""
+        info = self.info.cpu() if info is None else torch.from_numpy(info.astype(np.int32))
+        torch._linalg_check_errors(info, "linalg.cholesky", is_matrix=False)
 
 
 @dataclass
@@ -338,7 +500,9 @@ class TrainStats:
     """Counters of the trainer (`Trainer.fit_ensemble`): the optimizer
     `steps` it ran (an epoch's steps once, however many lanes ran them),
     the `plateau_steps` among them whose KL weight beta had reached the
-    annealing's `max_beta`, and the `post_annealing_selections`, tries
+    annealing's `max_beta`, the `replayed_steps` among them replayed from
+    a CUDA graph and the `captures` of the step into one (both counted as
+    the first lane saw them), and the `post_annealing_selections`, tries
     whose returned model was chosen after the KL annealing. Callers reset
     them (`reset()`, or a field to 0) around a region they measure. The
     counts are taken under a lock: the mesh's worker threads may count at
@@ -346,14 +510,20 @@ class TrainStats:
 
     steps: int = 0
     plateau_steps: int = 0
+    replayed_steps: int = 0
+    captures: int = 0
     post_annealing_selections: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
 
-    def count_epoch(self, steps: int, beta: float, max_beta: Optional[float]) -> None:
-        """Count one epoch's `steps`, all at the KL weight `beta`."""
+    def count_epoch(self, steps: int, beta: float, max_beta: Optional[float],
+                    replayed: int = 0, captures: int = 0) -> None:
+        """Count one epoch's `steps`, all at the KL weight `beta`, of which
+        `replayed` came from a CUDA graph, captured `captures` times."""
         with self._lock:
             self.steps += steps
             self.plateau_steps += steps if max_beta is not None and beta == max_beta else 0
+            self.replayed_steps += replayed
+            self.captures += captures
 
     def count_post_annealing(self, tries: int) -> None:
         with self._lock:
@@ -362,6 +532,7 @@ class TrainStats:
     def reset(self) -> None:
         with self._lock:
             self.steps = self.plateau_steps = self.post_annealing_selections = 0
+            self.replayed_steps = self.captures = 0
 
 
 TRAIN_STATS = TrainStats()
@@ -494,6 +665,7 @@ class Trainer:
             lane.gens = [torch.Generator(device=dev).manual_seed(int(s))
                          for s in list(seeds)[lane.tries]]
             lane.opt_state = optimizer.init(lane.params)
+            lane.steps = _Steps(lane, self.loss_fn, optimizer, off, steps, cfg.batch_size)
 
         with annotate("trainer.place"):
             placed = dict(zip(devices, run_per_device(place, Mesh(devices))))
@@ -550,6 +722,7 @@ class Trainer:
                 cfg.max_epochs,
             )
         lr_tries = np.full(T, base_lr, np.float32)
+        validate = True
 
         for epoch in range(cfg.max_epochs):
             if stopped.all():
@@ -571,45 +744,42 @@ class Trainer:
                     )[:, None].repeat(T, 1)
                 else:
                     lrs = lr_tries[None].repeat(steps, 0)
+                bias = (np.array([optimizer.bias_corrections(epoch * steps + s + 1)
+                                  for s in range(steps)], np.float32)
+                        if optimizer.name in ("adam", "adamw") else None)
             validate = (epoch + 1) % check_every == 0
 
             def run_epoch(dev, lane):
-                """The lane's steps of the epoch, then, at a validation
-                epoch, its (2 + aux, tries) losses on the host."""
+                """The lane's steps of the epoch: the steps replayed and
+                the captures, then, at a validation epoch, its (2 + aux,
+                tries) losses on the host."""
+                program = lane.steps
                 with annotate("trainer.epoch_setup"):
-                    gb_d = torch.as_tensor(gb[lane.tries], device=dev)
-                    wb_d = torch.as_tensor(wb[lane.tries], device=dev)
-                    lrs_d = torch.as_tensor(lrs[:, lane.tries], device=dev)
-                    loss_sum = torch.zeros(gb_d.shape[0], device=dev)
-                for s in range(steps):
+                    program.fill(gb[lane.tries], wb[lane.tries], lrs[:, lane.tries], bias)
+                replayed, captures = program.replayed, program.captures
+                for _ in range(steps):
                     with annotate(STEP_SPAN):
-                        idx = gb_d[:, s]
-                        batch = {k: v[idx + off.get(k, 0)] for k, v in lane.data.items()}
-                        batch["weight"] = wb_d[:, s]
-                        with annotate("trainer.forward"):
-                            loss, _ = self.loss_fn(lane.params, batch, lane.gens, beta, True)
-                        with annotate("trainer.backward"):
-                            grads = torch.autograd.grad(loss.sum(),
-                                                        list(lane.params.values()))
-                        with annotate("trainer.optimizer"):
-                            optimizer.step(lane.params, dict(zip(lane.params, grads)),
-                                           lane.opt_state, lrs_d[s])
-                        loss_sum += loss.detach()
+                        program(beta)
+                counts = (program.replayed - replayed, program.captures - captures)
                 if not validate:
-                    return None
+                    return counts, None
                 with annotate("trainer.validate"), torch.no_grad():
                     valid_loss, valid_aux = self.loss_fn(
                         lane.params, lane.valid_batch, lane.gens, beta, False
                     )
-                    return list(valid_aux), torch.stack(
-                        [loss_sum / steps, valid_loss] + list(valid_aux.values())
+                    host = torch.stack(
+                        [program.loss_sum / steps, valid_loss] + list(valid_aux.values())
+                        + [program.info.float()]
                     ).cpu().numpy().astype(np.float64)
+                program.check(host[-1])
+                return counts, (list(valid_aux), host[:-1])
 
             ran = run_per_device(run_epoch, mesh, lanes)
             TRAIN_STATS.count_epoch(steps, beta, None if cfg.kl_annealing is None
-                                    else cfg.kl_annealing.max_beta)
+                                    else cfg.kl_annealing.max_beta, *ran[0][0])
             if not validate:
                 continue
+            ran = [read for _, read in ran]
             aux_keys = ran[0][0]
             parts = [part for _, part in ran]
             host = np.concatenate(parts, axis=1)
@@ -670,6 +840,8 @@ class Trainer:
                 last_epoch = np.where(newly_stopped, epoch, last_epoch)
                 stopped |= newly_stopped
 
+        if not validate:
+            run_per_device(lambda dev, lane: lane.steps.check(), mesh, lanes)
         if (~stopped).any():
             last_params = select(~stopped, current(), last_params)
 

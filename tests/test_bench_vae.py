@@ -20,9 +20,9 @@ VAE_CELL = "lambda80_vae.train_vae"
 SEED = 2**31 + 4321   # wider than 32 signed bits, as a run's seed may be
 VAE_METRICS = ["elbo_device_us_per_step.train_vae", "train_mfu.train_vae",
                "host_syncs_per_step.train", "idle_share.train", "step_host_ms.train",
-               "fit_fixed_ms.train"]
+               "fit_fixed_ms.train", "graph_replay_share.train"]
 TRAIN_METRICS = ["train_mfu", "host_syncs_per_step.train", "idle_share.train",
-                 "step_host_ms.train", "fit_fixed_ms.train"]
+                 "step_host_ms.train", "fit_fixed_ms.train", "graph_replay_share.train"]
 
 
 def tiny(workload: str) -> Cell:

@@ -231,25 +231,33 @@ def test_autoencoder_training_on_the_card_matches_the_cpu(cuda, monkeypatch, cv,
                                                           batchnorm):
     """The same seeded AE / VAE training (2 tries, 4 epochs, the VAE through
     its KL annealing) on the card and on the CPU: the same initial
-    parameters and batches, and the VAE's noise shared (one seeded draw per
-    call, the same on both devices); with batchnorm, the fold on the card
+    parameters and batches, and the VAE's noise shared (the k-th call's
+    draw the same on both devices: the k-th of a seeded bank, read through
+    a count on the device, so that a step captured in a CUDA graph draws
+    the next one at each replay); with batchnorm, the fold on the card
     too."""
     from deep_cartograph_torch.cv import cv_calculators_map
     from deep_cartograph_torch.models import networks
 
-    draws = []
+    x = _toy_features()
+    # 4 epochs of 10 steps and 4 validations, the largest draw the
+    # validation's 600 rows of 2 tries
+    bank = torch.randn((64, 2, 600, 2), generator=torch.Generator().manual_seed(0))
+    drawn = {}
 
     def shared_noise(shape, generators):
-        gen = torch.Generator().manual_seed(len(draws))
-        draws.append(shape)
-        return torch.randn(tuple(shape), generator=gen).to(generators[0].device)
+        dev = generators[0].device
+        if dev not in drawn:
+            drawn[dev] = bank.to(dev), torch.zeros(1, dtype=torch.int64, device=dev)
+        table, k = drawn[dev]
+        draw = table.index_select(0, k)[0, :shape[0], :shape[1], :shape[2]]
+        k += 1
+        return draw
 
     monkeypatch.setattr(networks, "reparam_noise", shared_noise)
     config = _autoencoder_config(batchnorm=[batchnorm, batchnorm])
-    x = _toy_features()
     runs = []
     for device in ("cuda", "cpu"):
-        draws.clear()
         calc = cv_calculators_map[cv](config, device=device)
         calc._set_training_data(x, None, [f"f{i}" for i in range(x.shape[1])])
         assert calc.train()

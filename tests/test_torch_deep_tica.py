@@ -26,11 +26,14 @@ from deep_cartograph_torch.cv.deep import (
     deep_tica_batch_eigvals,
     make_deep_tica_loss,
 )
+from deep_cartograph_torch.cv import deep as port_deep
+from deep_cartograph_torch.cv.tica_math import generalized_eigh
 from deep_cartograph_torch.deploy import FramesToCV
 from deep_cartograph_torch.fes.kde import compute_fes
 from deep_cartograph_torch.geom.engine import Featurizer
 from deep_cartograph_torch.io.topology import Topology
 from deep_cartograph_torch.models.networks import DeepTICAStack
+from deep_cartograph_torch.models.training import CHOLESKY_INFO
 from deep_cartograph_torch.models.weights import params_from_flax, params_to_flax
 from deep_cartograph_torch.stats import descriptors as torch_stats
 from tests.test_cv import base_config
@@ -76,9 +79,14 @@ def test_batch_eigvals_and_gradient_match_jax():
              "weight": torch.from_numpy(weight)}
     module = DeepTICAStack(layers, options)
     evals = deep_tica_batch_eigvals(module, stacked, batch, None, 1e-6)
-    loss, aux = make_deep_tica_loss(module, 1e-6, 2)(stacked, batch, None, 0.0)
+    loss_fn = make_deep_tica_loss(module, 1e-6, 2)
+    loss, aux = loss_fn(stacked, batch, None, 0.0)
     torch.testing.assert_close(loss, -evals.sum(-1))
-    torch.testing.assert_close(aux["eigval_2"], evals[:, 1])
+    # training's aux: Cholesky's info, 0 for each try; validation's: each eigenvalue
+    assert aux[CHOLESKY_INFO].tolist() == [0, 0]
+    valid_loss, valid_aux = loss_fn(stacked, batch, None, 0.0, False)
+    torch.testing.assert_close(valid_loss, -evals.sum(-1))
+    torch.testing.assert_close(valid_aux["eigval_2"], evals[:, 1])
     grads = torch.autograd.grad(loss.sum(), list(stacked.values()))
     grads = dict(zip(stacked, grads))
 
@@ -107,35 +115,51 @@ def _colvars(path, features, names):
     return path
 
 
-def _train_both(tmp_path, features, labels, names, config, monkeypatch,
+def _setup_both(tmp_path, features, labels, names, config, monkeypatch,
                 validation=None):
-    """Train the JAX calculator (through its colvars reader) and the port's
-    (through `_set_training_data` / `_set_validation_data`) from the JAX
-    package's initial parameters. Returns both, trained and
-    post-normalized."""
+    """The JAX calculator with its data read (through its colvars reader),
+    and a maker of port calculators on the same data (through
+    `_set_training_data` / `_set_validation_data`) that start from the JAX
+    package's initial parameters."""
     path = _colvars(str(tmp_path / "colvars.dat"), features, names)
     jcalc = JaxDeepTICACalculator(configuration=config, output_path=str(tmp_path))
     jcalc.load_training_data([path], features_list=list(names))
     jcalc.create_output_folders()
-
-    calc = DeepTICACalculator(configuration=config, device="cpu")
-    calc._set_training_data(jcalc.training_data, labels, names)
     if validation is not None:
         vpath = _colvars(str(tmp_path / "valid.dat"), validation, names)
         jcalc.load_validation_data([vpath], features_list=list(names))
-        calc._set_validation_data(jcalc.validation_data, jcalc.validation_data_labels)
+    inits = {}
 
-    seeds = [calc.seed + t for t in range(1, calc.num_tries + 1)]
-    jax_init = jax.tree.map(np.asarray, jcalc._init_params_stack(
-        jnp.stack([jax.random.PRNGKey(s) for s in seeds])))
-    port_init = calc._init_params_stack
+    def make_port():
+        calc = DeepTICACalculator(configuration=config, device="cpu")
+        calc._set_training_data(jcalc.training_data, labels, names)
+        if validation is not None:
+            calc._set_validation_data(jcalc.validation_data, jcalc.validation_data_labels)
+        seeds = [calc.seed + t for t in range(1, calc.num_tries + 1)]
+        if not inits:
+            inits["jax"] = jax.tree.map(np.asarray, jcalc._init_params_stack(
+                jnp.stack([jax.random.PRNGKey(s) for s in seeds])))
+        port_init = calc._init_params_stack
 
-    def carried(seeds_):
-        assert list(seeds_) == seeds
-        port_init(seeds_)  # builds the module
-        return params_from_flax(jax_init)
+        def carried(seeds_):
+            assert list(seeds_) == seeds
+            port_init(seeds_)  # builds the module
+            return params_from_flax(inits["jax"])
 
-    monkeypatch.setattr(calc, "_init_params_stack", carried)
+        monkeypatch.setattr(calc, "_init_params_stack", carried)
+        return calc
+
+    return jcalc, make_port
+
+
+def _train_both(tmp_path, features, labels, names, config, monkeypatch,
+                validation=None):
+    """Train the JAX calculator and the port's (`_setup_both`) from the JAX
+    package's initial parameters. Returns both, trained and
+    post-normalized."""
+    jcalc, make_port = _setup_both(tmp_path, features, labels, names, config,
+                                   monkeypatch, validation)
+    calc = make_port()
     assert jcalc.train() and calc.train()
     jcalc.normalize_cv()
     calc.normalize_cv()
@@ -194,6 +218,13 @@ def test_deep_tica_calculator_with_validation_data_matches_jax(
                                jcalc.project_data(features), atol=PROJECTION_TOL)
 
 
+def _eigh_sum(a, b, reg):
+    """`generalized_eigvals_sum` as the sum of `generalized_eigh`'s
+    eigenvalues: the training loss's arithmetic before the trace."""
+    evals, _ = generalized_eigh(a, b, reg)
+    return evals.sum(-1), torch.zeros(b.shape[:-2], dtype=torch.int32)
+
+
 @pytest.mark.parametrize("jitter", [0.0, 0.2])
 def test_smoke_trajectory_trains_alike_in_both_packages(jitter, tmp_path, monkeypatch):
     """chip_smoke.py's helix cut to 1,000 frames and 2 tries, all 1,171
@@ -201,7 +232,13 @@ def test_smoke_trajectory_trains_alike_in_both_packages(jitter, tmp_path, monkey
     the lag-10 motion is deterministic and training pushes the batch TICA
     eigenvalues past 1: both packages reject the same try for a score below
     -dimension, and both fit an output eigenvalue above 1. With the smoke
-    run's 0.2 A jitter every try passes in both."""
+    run's 0.2 A jitter every try passes in both. Past -dimension C0 nears
+    singular, and round-off sets the training: there the port trains
+    once with the sum of eigh's eigenvalues (`_eigh_sum`), the arithmetic
+    it held to the JAX package before its training loss became the
+    whitened Ctau's trace, and once with the trace, which parts from it by
+    round-off alone: the same try is rejected and the same eigenvalues
+    fitted."""
     import copy
 
     import chip_smoke
@@ -226,8 +263,16 @@ def test_smoke_trajectory_trains_alike_in_both_packages(jitter, tmp_path, monkey
         return jax_tries["results"]
 
     monkeypatch.setattr(JaxDeepTICACalculator, "_run_tries_ensemble", record)
-    jcalc, calc = _train_both(tmp_path, feat[:, keep], np.zeros(n_frames), kept,
-                              config, monkeypatch)
+    jcalc, make_port = _setup_both(tmp_path, feat[:, keep], np.zeros(n_frames), kept,
+                                   config, monkeypatch)
+    calc = make_port()
+    assert jcalc.train()
+    jcalc.normalize_cv()
+    with monkeypatch.context() as patched:
+        if not jitter:
+            patched.setattr(port_deep, "generalized_eigvals_sum", _eigh_sum)
+        assert calc.train()
+    calc.normalize_cv()
     want = [r.score for _, r in jax_tries["results"]]
     got = [r.score for _, r in calc.try_results]
     assert [calc._validate_result(r) for _, r in calc.try_results] == [
@@ -243,6 +288,13 @@ def test_smoke_trajectory_trains_alike_in_both_packages(jitter, tmp_path, monkey
         # orders part the two packages' scores by ~3e-4 relative
         np.testing.assert_allclose(got, want, rtol=1e-3)
         assert jcalc.eigenvalues_[0] > 1.0 and calc.eigenvalues_[0] > 1.0
+        traced = make_port()
+        assert traced.train()
+        traced.normalize_cv()
+        assert [traced._validate_result(r) for _, r in traced.try_results] == [
+            jcalc._validate_result(r) for _, r in jax_tries["results"]]
+        assert min(r.score for _, r in traced.try_results) < -2.0
+        np.testing.assert_allclose(traced.eigenvalues_, jcalc.eigenvalues_, atol=1e-5)
 
 
 def test_batched_tries_equal_serial_tries(ca_system):
