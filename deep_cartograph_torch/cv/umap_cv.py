@@ -20,6 +20,11 @@ Differences, on purpose:
   generator seeded with `seed` on the device, so a fit matches the JAX
   package only in distribution; `draws` passes given draws in instead.
 - On CUDA, `index_add_` sums the updates of one row in no fixed order.
+
+Each fit runs in a span `umap.fit` holding one span a part (`umap.knn`,
+`umap.sigma`, `umap.symmetrize`, `umap.pca_init`, `umap.layout`);
+`transform` runs in `umap.transform`. `UMAP_STATS` counts the work, one
+update a part.
 """
 
 from __future__ import annotations
@@ -27,7 +32,9 @@ from __future__ import annotations
 import json
 import logging
 import os
+import threading
 import time
+from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -35,6 +42,7 @@ import torch
 
 from deep_cartograph_torch.cv.base import CVCalculator, cv_names_map
 from deep_cartograph_torch.utils.device import DeviceLike, resolve_device
+from deep_cartograph_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -43,6 +51,38 @@ _KNN_TILE_ELEMENTS = 1 << 26
 
 # draws(epoch, n_edges) -> (uniform (n_edges,), negatives (n_edges, negative_samples))
 Draws = Callable[[int, int], Tuple[object, object]]
+
+
+@dataclass
+class UMAPStats:
+    """Counters of UMAP's work: the `fits`, the kNN's `knn_tiles` and the
+    `knn_candidates` (query, data row) pairs their d2 scored (a fit's and
+    `transform`'s), the symmetrized graph's `edges`, the layout `epochs`
+    run and the embedding rows left not finite by a fit
+    (`nonfinite_rows`). Each part adds its counts once, never once an epoch
+    or a tile. Callers reset them (`reset()`) around a region they
+    measure; the counts are taken under a lock."""
+
+    fits: int = 0
+    knn_tiles: int = 0
+    knn_candidates: int = 0
+    edges: int = 0
+    epochs: int = 0
+    nonfinite_rows: int = 0
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
+
+    def add(self, **counts: int) -> None:
+        with self._lock:
+            for name, n in counts.items():
+                setattr(self, name, getattr(self, name) + int(n))
+
+    def reset(self) -> None:
+        with self._lock:
+            self.fits = self.knn_tiles = self.knn_candidates = 0
+            self.edges = self.epochs = self.nonfinite_rows = 0
+
+
+UMAP_STATS = UMAPStats()
 
 
 def _f32(x: float) -> float:
@@ -100,6 +140,7 @@ def _knn(
             best = torch.topk(keys, min(k, keys.shape[1]), dim=1, largest=False).values
         dists.append(torch.sqrt(torch.clamp_min(_key_d2(best), 0.0)))
         idx.append(best & 0xFFFFFFFF)
+    UMAP_STATS.add(knn_tiles=-(-nq // row_block) * -(-n // col_block), knn_candidates=nq * n)
     return torch.cat(dists), torch.cat(idx)
 
 
@@ -257,12 +298,16 @@ class UMAPModel:
         return self._on_device[1]
 
     def _timed(self, name: str, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        _sync(self.device)
-        self.fit_seconds[name] = time.perf_counter() - t0
+        """fn() in the span `umap.<name>`, its host seconds in
+        `fit_seconds[name]`, the device drained at its end."""
+        with annotate(f"umap.{name}"):
+            t0 = time.perf_counter()
+            out = fn()
+            _sync(self.device)
+            self.fit_seconds[name] = time.perf_counter() - t0
         return out
 
+    @annotate("umap.fit")
     def fit(self, data, draws: Optional[Draws] = None) -> "UMAPModel":
         """Fit on (n, d) data (numpy, or a tensor). `draws(epoch, n_edges)`:
         the layout's uniform draws and negative samples of each epoch, in
@@ -280,6 +325,8 @@ class UMAPModel:
         embedding = self._timed("layout", lambda: self.layout(init, *self.graph_, draws))
         self.embedding_ = embedding.cpu().numpy()
         self._on_device = ((self.training_data, self.embedding_), (x, embedding))
+        UMAP_STATS.add(fits=1, edges=len(self.graph_[0]), nonfinite_rows=int(
+            np.sum(~np.isfinite(self.embedding_).all(axis=1))))
         return self
 
     def layout(self, embedding: torch.Tensor, heads, tails, weights,
@@ -307,8 +354,10 @@ class UMAPModel:
                          torch.as_tensor(uniform, device=dev, dtype=torch.float32),
                          torch.as_tensor(negatives, device=dev).long(),
                          alpha, self.a, self.b)
+        UMAP_STATS.add(epochs=self.n_epochs)
         return emb
 
+    @annotate("umap.transform")
     def transform(self, new_data, n_epochs: int = 50) -> np.ndarray:
         """Embed new points: init at the fuzzy-weighted mean of their
         training neighbours' embeddings, then locally optimize attraction."""
